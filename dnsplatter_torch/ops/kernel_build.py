@@ -1,0 +1,90 @@
+"""Build the hand-written CUDA kernels of `dnsplatter_torch/csrc` and load
+them with ctypes.
+
+Each `csrc/<name>.cu` exposes a plain C interface and compiles on its own
+with nvcc into `dnsplatter_torch/_build/lib<name>-<hash>.so`; the hash
+covers the source and the flags, so an edited source rebuilds and an
+unchanged one is reused. Nothing compiles at import: the first launch
+builds what it needs, and `build()` compiles every source in parallel, one
+nvcc process each.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+SOURCES = ("expand_segments", "forward_tiles")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+    if (home / "bin" / "nvcc").exists():
+        return str(home / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin "
+            "and PATH): the CUDA kernels cannot be built")
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
+    """Compile every named source that is not built yet, all at once.
+
+    Returns {name: ptxas report} for the sources compiled by this call
+    (registers, shared memory, spills). Raises with nvcc's output if any
+    compile fails.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    running = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC_DIR / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, tmp, out)
+    reports, failures = {}, []
+    for name, (proc, tmp, out) in running.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out)  # atomic: a concurrent build never sees half
+        reports[name] = log
+    if failures:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+    return reports
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for `csrc/<name>.cu`, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build((name,))
+        lib = ctypes.CDLL(str(library_path(name)))
+        _LIBS[name] = lib
+    return lib

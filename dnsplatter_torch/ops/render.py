@@ -1,0 +1,112 @@
+"""Full render: projection + SH + one rasterizer pass for rgb, camera-frame
+normals and depth (counterpart of dnsplatter_tpu/ops/render.py).
+
+Outputs match the reference's `get_outputs` dict: rgb, depth (expected),
+normal (camera frame), surface_normal (depth-gradient), accumulation,
+background. The training-only sinks (`xys_sink`, `absgrad_sink`) come with
+the training slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from dnsplatter_torch.models.gaussians import GaussianParams
+from dnsplatter_torch.ops.camera import Camera
+from dnsplatter_torch.ops.normals import (
+    per_gaussian_normals,
+    surface_normal_output,
+    world_to_camera_normals,
+)
+from dnsplatter_torch.ops.projection import project_gaussians
+from dnsplatter_torch.ops.rasterize import RasterizeConfig, rasterize
+from dnsplatter_torch.ops.sh import eval_sh
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderOutputs:
+    rgb: torch.Tensor  # (H, W, 3) background-composited
+    depth: torch.Tensor  # (H, W, 1) expected depth (alpha-normalized)
+    normal: torch.Tensor  # (H, W, 3) composited camera-frame normals
+    surface_normal: torch.Tensor  # (H, W, 3) depth-gradient normals in [0,1]
+    accumulation: torch.Tensor  # (H, W, 1) alpha
+    background: torch.Tensor  # (3,)
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderInfo:
+    """Densification statistics (gsplat `info` equivalent)."""
+
+    radii: torch.Tensor  # (N,) screen radii (0 = culled)
+    depths: torch.Tensor  # (N,) camera z
+    valid: torch.Tensor  # (N,) bool visibility
+    means2d: torch.Tensor  # (N, 2) screen centers
+
+
+def render(
+    params: GaussianParams,
+    alive: torch.Tensor,
+    camera: Camera,
+    raster_cfg: RasterizeConfig,
+    sh_degree_to_use: int = 3,
+    background: Optional[torch.Tensor] = None,
+    rasterize_mode: str = "classic",
+    near_plane: float = 0.01,
+    far_plane: float = 1e10,
+    crop_box: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[RenderOutputs, RenderInfo]:
+    """Render one camera. `alive` (C,) {0,1} masks capacity padding;
+    `crop_box` (lo, hi) keeps only Gaussians inside a world AABB."""
+    dev = params.means.device
+    if background is None:
+        background = torch.zeros(3, device=dev)
+
+    viewmat = camera.viewmat()
+    opac_raw = torch.sigmoid(params.opacities)
+    proj = project_gaussians(
+        params.means, params.quats, torch.exp(params.scales), viewmat,
+        camera.fx, camera.fy, camera.cx, camera.cy, camera.width,
+        camera.height, near_plane=near_plane, far_plane=far_plane,
+        opacities=opac_raw,
+    )
+    valid = proj.valid & (alive > 0.5)
+    if crop_box is not None:
+        lo, hi = crop_box
+        inside = torch.all(
+            (params.means >= lo[None]) & (params.means <= hi[None]), dim=-1)
+        valid = valid & inside
+
+    opac = opac_raw
+    if rasterize_mode == "antialiased":
+        opac = opac * proj.compensations
+
+    cam_pos = camera.position()
+    colors = eval_sh(sh_degree_to_use, params.sh_coeffs(),
+                     params.means - cam_pos[None, :])
+    n_world = per_gaussian_normals(params.scales, params.quats, params.means,
+                                   cam_pos)
+    n_cam = world_to_camera_normals(n_world, camera.c2w)
+    feats = torch.cat([colors, n_cam, proj.depths[:, None]], dim=-1)
+
+    img, alpha = rasterize(proj.means2d, proj.conics, proj.depths, opac,
+                           feats, valid, raster_cfg, radii=proj.radii_xy)
+
+    rgb = img[..., 0:3] + (1.0 - alpha) * background[None, None, :]
+    rgb = torch.clamp(rgb, 0.0, 1.0)
+    depth_acc = img[..., 6:7]
+    # Expected depth: accumulated / alpha where visible, the (detached)
+    # maximum elsewhere (splatfacto semantics).
+    max_depth = depth_acc.max().detach()
+    depth = torch.where(alpha > 0.0,
+                        depth_acc / torch.clamp_min(alpha, 1e-10), max_depth)
+    surface_normal = surface_normal_output(depth.detach(), camera.fx,
+                                           camera.fy, camera.cx, camera.cy)
+    outputs = RenderOutputs(rgb=rgb, depth=depth, normal=img[..., 3:6],
+                            surface_normal=surface_normal,
+                            accumulation=alpha, background=background)
+    info = RenderInfo(radii=proj.radii, depths=proj.depths, valid=valid,
+                      means2d=proj.means2d)
+    return outputs, info
