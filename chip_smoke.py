@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Serve a trained scene with dnsplatter_torch on one NVIDIA GPU, end to end.
+"""Serve and train a scene with dnsplatter_torch on one NVIDIA GPU, end to end.
 
     python3 chip_smoke.py
 
@@ -8,7 +8,7 @@ Phases (any failure raises and the script exits non-zero):
 1. Prints the card's name and power limit, builds every CUDA kernel of
    `dnsplatter_torch/csrc` with nvcc (one process per source, in
    parallel) and prints the build time.
-2. Main path, for two synthetic scenes at 1024x576, SH degree 3, seven
+2. Serving, for two synthetic scenes at 1024x576, SH degree 3, seven
    composited channels: 100k Gaussians (pair capacity 1,441,792: the
    resident `expand_segments` entry) and 1M Gaussians (scale shift
    -ln(10)/3, extent 1.5, capacity 5,242,880: the streamed entry). Each
@@ -18,23 +18,38 @@ Phases (any failure raises and the script exits non-zero):
    just after. Metrics must be finite (LPIPS is not ported and reports
    NaN), every camera's pair list must fit the capacity, and each kernel
    of the path must have launched once per rendered frame.
-3. Each kernel against its plain PyTorch version, on the card, at the
-   inputs the main path gives it (captured from camera 0): expand_segments
-   bit-equal with int32 and float32 rows; forward_tiles image / t_final
-   within 1e-4 (image: of its max) on every pixel whose `last` agrees.
-   The kernel composites with a running product, the plain version with
-   exp of summed log1p (the Pallas arithmetic), so a pixel whose
-   transmittance lands within rounding of the 1e-4 cutoff can stop one
-   splat earlier or later. At most 20 pixels of a frame may do so, and
-   each must show it: the version that went on stopped with T within
-   0.1% of 1e-4, and its image moved by no more than that one splat
-   (|dT| times the largest feature) plus the tolerance.
+3. Training, through `Trainer(...).train` at the Trainer's defaults
+   (depthq keys, the bf16-packed gradient reduction by key with
+   compaction, audited pair capacity, state capacity 1.25 x the seeds):
+   targets (rgb, sensor depth, normals) rendered by the port from each
+   scene's ground truth, seed points perturbed from its means, depth and
+   normal losses on, SH degree 3 from step 3. 1M seeds: 3 warm-up steps,
+   then 20 timed steps with the launch counters set to 0 just before and
+   read just after; every loss and parameter finite, the mean loss of the
+   last four steps below that of the first four timed ones (each round of
+   four visits every camera), the audited pair capacity holding every
+   camera, all four kernels launched once a step. 100k seeds: 60 steps
+   with a refinement cadence short enough to hold densify-and-cull events
+   and an opacity reset; the alive count must change.
+4. Each kernel against its plain PyTorch version, on the card, at the
+   inputs the main path gives it (serving: camera 0; training: one more
+   step after the timed ones, the cotangents those of the real loss):
+   expand_segments bit-equal with int32 and float32 rows; forward_tiles
+   image / t_final within 1e-4 (image: of its max) on every pixel whose
+   `last` agrees (see `compare_forward`); backward_tiles decoded within
+   2^-7 relative plus 1e-4 of the field's largest value, at most 0.1% of
+   elements beyond one bf16 ulp, integer zeros where the plain version
+   has them, two runs bit-equal (see `compare_backward`);
+   reduce_segments_bykey rtol 1e-5 / atol 1e-5 of the row's scale, exact
+   zeros for Gaussians without pairs, two runs bit-equal.
    Times: device time per call, from a batch of calls queued back to back
    behind a spin kernel between one pair of CUDA events (median of three
    batches), so the host's per-call cost is not in it. The bound is the
    larger of the bytes the function must move / 3.35 TB/s and its FP32
    work / 67 TFLOP/s (H100 SXM data sheet), counted on this run's data.
-4. The kernel path against the port's dense oracle on a small scene.
+5. The kernel path against the port's dense oracle on small scenes: the
+   forward, and the gradients of the autograd function (rtol 2e-2 / atol
+   2e-3 of each array's largest magnitude) under depthq and packed keys.
 
 Prints one JSON line per kernel and scene, one per scene, a `kernels`
 line, the card's name and power limit, and last
@@ -68,7 +83,23 @@ FP32_OPS_PER_S = 67e12  # H100 SXM, outside the tensor cores
 # the opacity product, the clamp and the four tests (~20 FP32 ops), plus one
 # exp on the special-function units, which run at 1/8 of the FP32 rate.
 FWD_OPS_PER_VISIT = 20 + 8
+# backward_tiles per composited (pixel, pair): the reciprocal (8), the
+# transmittance, weight and suffix-sum updates, g_alpha, g_sigma and the
+# six geometry products (~37); per channel 4 more (fg, g_feat); and one add
+# per field for the sum over the tile's pixels.
+BWD_OPS_PER_HIT = 45
 FWD_TOL = 1e-4
+BWD_REL = 2.0 ** -7  # one bf16 ulp at the top of a binade
+BWD_ATOL = 1e-4  # x the field row's largest magnitude (cancelling sums)
+BWD_ULP_FRAC = 1e-3  # share of elements that may differ by > 1 bf16 ulp
+REDUCE_TOL = 1e-5
+GRAD_RTOL, GRAD_ATOL = 2e-2, 2e-3
+TRAIN_WARMUP = 3
+TRAIN_STEPS_1M = 20
+TRAIN_STEPS_100K = 60
+# A cadence short enough that 60 steps hold densify-and-cull events (steps
+# 20 and 50) and an opacity reset (step 40).
+REFINE_KW = dict(warmup_length=10, refine_every=10, reset_alpha_every=3)
 MAX_LAST_FLIPS = 20  # pixels per frame that may stop one splat apart
 CUTOFF_REL = 1e-3  # how near 1e-4 such a pixel's transmittance must end
 
@@ -325,16 +356,6 @@ def run_scene(name, n, shift, extent, capacity, seed, dev, gpu, tmp):
     from dnsplatter_torch.ops import rasterize_cuda as rc
     from dnsplatter_torch.train.trainer import load_checkpoint_arrays
 
-    class Frames:
-        def __init__(self, cams, batches):
-            self.cams, self.batches = cams, batches
-
-        def __len__(self):
-            return len(self.cams)
-
-        def get(self, i):
-            return self.cams[i], self.batches[i]
-
     t0 = time.perf_counter()
     gt, served, alive, cams = make_scene(n, shift, extent, seed, dev)
     cfg = eval_raster_config(WIDTH, HEIGHT, capacity)
@@ -457,6 +478,382 @@ def oracle_check(dev):
             "max_abs_err": float(err.max()), "alpha_mean": float(a.mean())}
 
 
+def decode_slab(slab, n_feats: int):
+    """The 6 + F float32 field rows of a packed gradient slab."""
+    import torch
+
+    from dnsplatter_torch.ops import rasterize_cuda as rc
+
+    rows = []
+    for r in range(rc.packed_rows(n_feats)):
+        rows += list(rc.unpack_bf16_2(slab[r]))
+    return torch.stack(rows[:6 + n_feats])
+
+
+def compare_backward(got, want, n_feats: int) -> dict:
+    """Hold backward_tiles' packed slab `got` against the plain version's
+    `want` on the same inputs; raise on disagreement.
+
+    Compared decoded, not as words: the kernel adds a pair's up to 256
+    per-pixel terms warp by warp, the plain version in torch.sum's order,
+    so a sum can land on the other side of a bf16 rounding boundary. Per
+    element |a - b| <= BWD_REL * max(|a|, |b|) + BWD_ATOL * (largest
+    magnitude of its field row), and at most BWD_ULP_FRAC of the non-zero
+    elements may differ by more than one bf16 ulp. The absolute term is for
+    sums that cancel: two float32 orders of up to 256 terms differ by up
+    to about 256 * 2^-24 * sum|terms|, which for terms of opposite sign is
+    far above an ulp of the small result (measured on the 1M training
+    scene: 5 of 14.7M elements moved by more than 2^-7 relative, the
+    largest by 3.8e-6 absolute). Where the plain slab holds an integer-zero
+    word the kernel's must too (slots no tile replays)."""
+    import torch
+
+    nz_bad = int(((want == 0) & (got != 0)).sum())
+    a = decode_slab(got, n_feats)
+    b = decode_slab(want, n_feats)
+    diff = (a - b).abs()
+    mag = torch.maximum(a.abs(), b.abs())
+    row_max = b.abs().amax(dim=1, keepdim=True)
+    excess = diff - (BWD_REL * mag + BWD_ATOL * row_max)
+    n_bad = int((excess > 0).sum())
+    nonzero = mag > 0
+    ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(1e-38))) - 7.0)
+    beyond = (diff > ulp) & nonzero
+    frac = float(beyond.sum()) / max(int(nonzero.sum()), 1)
+    rel = torch.where(nonzero, diff / mag.clamp_min(1e-38), 0.0)
+    report = {"max_abs_err": float(diff.max()),
+              "max_rel_err": float(rel.max()),
+              "elements": int(nonzero.sum()),
+              "beyond_one_ulp_frac": frac, "out_of_tolerance": n_bad,
+              "zero_words_broken": nz_bad,
+              "row_max": [float(v) for v in row_max[:, 0]]}
+    if n_bad or nz_bad or frac > BWD_ULP_FRAC:
+        raise AssertionError(f"backward_tiles disagrees with its plain "
+                             f"version: {report}")
+    return report
+
+
+def backward_work(payload, starts, counts, n_tiles: int, tile: int,
+                  tiles_x: int, last, n_feats: int) -> dict:
+    """The least work of backward_tiles on these inputs. A pixel replays
+    its list up to its own `last` (one geometry evaluation per pair, to
+    know which were hits) and does the gradient arithmetic for the hits; a
+    tile reads the payload of, and writes slab words for, its pairs up to
+    its deepest contributor."""
+    p = tile * tile
+    _, composited = forward_work(payload, starts, counts, n_tiles, tile,
+                                 tiles_x, last)
+    lastp = last.reshape(n_tiles, p).long()
+    visits = int((lastp + 1).sum())
+    accepted = int(composited.sum())
+    replayed = int((lastp.amax(dim=1) + 1).sum())
+    ops = (visits * FWD_OPS_PER_VISIT
+           + accepted * (BWD_OPS_PER_HIT + 4 * n_feats + (6 + n_feats)))
+    ru = (6 + n_feats + 1) // 2
+    nbytes = (replayed * (6 + n_feats + ru) * 4 + (2 * n_tiles + 1) * 4
+              + n_tiles * p * (n_feats + 3) * 4)
+    return {"visits": visits, "accepted": accepted, "replayed": replayed,
+            "ops": ops, "bytes": nbytes}
+
+
+def check_backward(rc, args, scene, gpu):
+    """Kernel vs plain on the inputs one training step gave it."""
+    import torch
+
+    (payload, starts, counts, g_out, g_alpha, t_final, last, n_tiles,
+     n_feats, tile, tiles_x, chunk) = args
+    got = rc.backward_tiles(*args, pack_grads=True)
+    again = rc.backward_tiles(*args, pack_grads=True)
+    want = rc.backward_tiles_plain(*args, pack_grads=True)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"({scene}) backward_tiles: two runs differ in "
+                             f"{int((got != again).sum())} words")
+    try:
+        cmp = compare_backward(got, want, n_feats)
+    except AssertionError as e:
+        raise AssertionError(f"({scene}) {e}") from None
+    work = backward_work(payload, starts, counts, n_tiles, tile, tiles_x,
+                         last, n_feats)
+    t_ops = work["ops"] / FP32_OPS_PER_S * 1e3
+    t_bytes = work["bytes"] / HBM_BYTES_PER_S * 1e3
+    ms = device_ms(lambda: rc.backward_tiles(*args, pack_grads=True), 20)
+    plain_ms = device_ms(
+        lambda: rc.backward_tiles_plain(*args, pack_grads=True), 1, 1)
+    return {"scene": scene, "kernel": "backward_tiles", **cmp, **work,
+            "runs_bit_equal": True, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "pairs": int(starts[n_tiles]), "gpu": gpu}
+
+
+def compare_reduce(got, want) -> dict:
+    """reduce_segments_bykey's kernel output against the plain version's:
+    rtol REDUCE_TOL, atol REDUCE_TOL x the row's largest magnitude (the
+    kernel adds a Gaussian's lanes in lane order, index_add_ in any
+    order), and exact zeros where the plain version has them (Gaussians
+    without pairs)."""
+    scale = want.abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
+    diff = (got - want).abs()
+    excess = diff - (REDUCE_TOL * want.abs() + REDUCE_TOL * scale)
+    n_bad = int((excess > 0).sum())
+    zero_bad = int(((want == 0) & (got != 0)).sum())
+    report = {"max_abs_err": float(diff.max()),
+              "max_scaled_err": float((diff / scale).max()),
+              "out_of_tolerance": n_bad, "zero_sums_broken": zero_bad}
+    if n_bad or zero_bad:
+        raise AssertionError(f"reduce_segments_bykey disagrees with its "
+                             f"plain version: {report}")
+    return report
+
+
+def check_reduce(rc, args, scene, gpu):
+    import torch
+
+    slab, ru, n = args
+    got = rc.reduce_segments_bykey(slab, ru, n)
+    again = rc.reduce_segments_bykey(slab, ru, n)
+    want = rc.reduce_segments_bykey_plain(slab, ru, n)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"({scene}) reduce_segments_bykey: two runs "
+                             "differ")
+    try:
+        cmp = compare_reduce(got, want)
+    except AssertionError as e:
+        raise AssertionError(f"({scene}) {e}") from None
+    # The library call, timed only: index_add_ of the rows decoded
+    # beforehand (the decode is not in its time).
+    keys = slab[ru].long()
+    ok = (keys >= 0) & (keys < n)
+    rows = []
+    for i in range(ru):
+        rows += list(rc.unpack_bf16_2(slab[i]))
+    rows += [rows[0].abs(), rows[1].abs()]
+    vals = torch.stack(rows)[:, ok].contiguous()
+    kk = keys[ok].contiguous()
+    out = torch.zeros((2 * ru + 2, n), device=slab.device)
+    library_ms = device_ms(lambda: out.zero_().index_add_(1, kk, vals), 10)
+    ms = device_ms(lambda: rc.reduce_segments_bykey(slab, ru, n), 20)
+    plain_ms = device_ms(
+        lambda: rc.reduce_segments_bykey_plain(slab, ru, n), 1)
+    length = slab.shape[1]
+    nbytes = (ru + 1) * length * 4 + (2 * ru + 2) * n * 4
+    ops = 2 * ru * length + 2 * length
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"scene": scene, "kernel": "reduce_segments_bykey", **cmp,
+            "runs_bit_equal": True, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library": "index_add_ of the "
+            "decoded rows", "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bytes": nbytes, "ops": ops, "lanes": length, "ids": n,
+            "gpu": gpu}
+
+
+class Frames:
+    """A scene source: cameras with their batches."""
+
+    def __init__(self, cams, batches):
+        self.cams, self.batches = cams, batches
+
+    def __len__(self):
+        return len(self.cams)
+
+    def get(self, i):
+        return self.cams[i], self.batches[i]
+
+
+def run_training(name, n, shift, extent, capacity, seed, dev, gpu, steps,
+                 model_kw, expect_refinement):
+    """Train the scene through `Trainer.train` and check the run; then hold
+    the two backward kernels against their plain versions at the inputs
+    one more step gives them."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from dnsplatter_torch.data.synthetic import render_batches
+    from dnsplatter_torch.eval.evaluator import eval_raster_config
+    from dnsplatter_torch.models.dn_model import ModelConfig
+    from dnsplatter_torch.models.gaussians import FIELDS
+    from dnsplatter_torch.ops import rasterize as rz
+    from dnsplatter_torch.ops import rasterize_cuda as rc
+    from dnsplatter_torch.ops.sh import sh_to_rgb
+    from dnsplatter_torch.train.trainer import TrainConfig, Trainer
+
+    t0 = time.perf_counter()
+    gt, _, alive, cams = make_scene(n, shift, extent, seed, dev)
+    cfg = eval_raster_config(WIDTH, HEIGHT, capacity)
+    data = Frames(cams, render_batches(gt, alive, cams, lambda cam: cfg,
+                                       sh_degree=3))
+    rng = np.random.default_rng(seed + 100)
+    pts = (gt.means.cpu().numpy()
+           + rng.normal(0.0, 0.002, (n, 3)).astype(np.float32))
+    cols = np.clip(sh_to_rgb(gt.features_dc).cpu().numpy(), 0.0, 1.0)
+    model_cfg = ModelConfig(use_depth_loss=True, depth_lambda=0.2,
+                            use_normal_loss=True, sh_degree=3,
+                            sh_degree_interval=1, **model_kw)
+    with contextlib.redirect_stdout(sys.stderr):
+        trainer = Trainer(data, (pts, cols), model_cfg=model_cfg,
+                          train_cfg=TrainConfig())
+    if trainer.params.means.device.type != dev.type:
+        raise AssertionError("Trainer did not default to the card")
+    log(f"[train {name}] targets, seed points and Trainer: "
+        f"{time.perf_counter() - t0:.1f} s")
+    cap0 = trainer.params.capacity
+    alive0 = int(trainer.alive.sum())
+
+    def one_step():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            row = trainer.train(1, log_every=1 << 30)[-1]
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3, row["loss"]
+
+    for _ in range(TRAIN_WARMUP):
+        one_step()
+    rc.LAUNCHES.clear()
+    timed = [one_step() for _ in range(steps)]
+    stream = trainer.params.capacity + 1 > (1 << 18)
+    names = ("expand_segments", "expand_segments_stream", "forward_tiles",
+             "backward_tiles", "reduce_segments_bykey")
+    launches = {k: rc.LAUNCHES[k] for k in names}
+    want = {k: steps for k in names}
+    want["expand_segments_stream" if not stream else "expand_segments"] = 0
+    if launches != want:
+        raise AssertionError(f"[train {name}] launches {launches}, "
+                             f"expected {want}")
+    ms = [t for t, _ in timed]
+    losses = [v for _, v in timed]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"[train {name}] losses {losses}")
+    for f in FIELDS:
+        if not bool(torch.isfinite(getattr(trainer.params, f)).all()):
+            raise AssertionError(f"[train {name}] {f} is not finite")
+    # every camera is visited once in four steps: compare like with like
+    first = statistics.mean(losses[:N_CAMERAS])
+    final = statistics.mean(losses[-N_CAMERAS:])
+    if not expect_refinement and not final < first:
+        raise AssertionError(f"[train {name}] loss did not fall: first "
+                             f"four steps {first}, last four {final}")
+    rcfg = trainer._raster_cfg(cams[0])
+    totals = pair_totals(trainer.params, trainer.alive, cams, rcfg)
+    if max(totals) > rcfg.pair_capacity:
+        raise AssertionError(f"[train {name}] pair totals {totals} overflow "
+                             f"the audited capacity {rcfg.pair_capacity}")
+    alive1 = int(trainer.alive.sum())
+    grown = trainer.params.capacity != cap0
+    if expect_refinement and alive1 == alive0:
+        raise AssertionError(f"[train {name}] {steps} steps with the "
+                             "shortened cadence left the alive count at "
+                             f"{alive0}: no refinement event ran")
+
+    # -- one more step, the kernels' inputs captured --
+    with mock.patch.object(rc, "backward_tiles",
+                           wraps=rc.backward_tiles) as bwd, \
+            mock.patch.object(rc, "reduce_segments_bykey",
+                              wraps=rc.reduce_segments_bykey) as red, \
+            mock.patch.object(rz, "live_pair_slots",
+                              wraps=rz.live_pair_slots) as live:
+        one_step()
+    bargs = bwd.call_args.args
+    if bwd.call_args.kwargs != {"pack_grads": True}:
+        raise AssertionError("the training path did not ask for packed "
+                             "gradients")
+    live_pairs = int(red.call_args.args[0].shape[1])
+    if live.call_count != 1:
+        raise AssertionError("the training path did not compact the slab")
+    reports = [check_backward(rc, bargs, f"train_{name}", gpu),
+               check_reduce(rc, red.call_args.args, f"train_{name}", gpu)]
+    for rep in reports:
+        rep["launches_per_step"] = 1
+        rep["launches_main_path"] = launches[rep["kernel"]]
+    med = statistics.median(ms)
+    summary = {
+        "scene": f"train_{name}", "seed_gaussians": n, "alive": alive1,
+        "capacity": trainer.params.capacity, "capacity_grown": grown,
+        "width": WIDTH, "height": HEIGHT, "steps": steps,
+        "ms_per_step": med, "ms_per_step_min": min(ms),
+        "ms_per_step_max": max(ms), "steps_per_s": 1e3 / med,
+        "loss_first4": first, "loss_last4": final,
+        "pair_capacity": rcfg.pair_capacity,
+        "audited_pairs": trainer.audited_pairs, "pair_totals": totals,
+        "live_pairs_after_compaction": live_pairs,
+        "sort_scheme": rcfg.sort_scheme, "launches": launches, "gpu": gpu,
+    }
+    return summary, reports, launches
+
+
+def oracle_grad_check(dev):
+    """Gradients of the kernel path (forward_tiles, backward_tiles, the
+    key sort, reduce_segments_bykey) against torch.autograd through the
+    dense oracle, per array scaled by its largest magnitude: rtol 2e-2,
+    atol 2e-3, the JAX package's tolerance for its bf16-packed
+    reduction."""
+    import numpy as np
+    import torch
+
+    from dnsplatter_torch.data.synthetic import make_gt_gaussians, ring_cameras
+    from dnsplatter_torch.ops import rasterize_cuda as rc
+    from dnsplatter_torch.ops.projection import project_gaussians
+    from dnsplatter_torch.ops.rasterize import RasterizeConfig, rasterize
+    from dnsplatter_torch.ops.rasterize_ref import rasterize_pixels_ref
+
+    n, w, h = 600, 96, 64
+    gt, _ = make_gt_gaussians(np.random.default_rng(11), n, device=dev)
+    cam = ring_cameras(1, width=w, img_height=h, focal=90.0, device=dev)[0]
+    with torch.no_grad():
+        proj = project_gaussians(gt.means, gt.quats, torch.exp(gt.scales),
+                                 cam.viewmat(), cam.fx, cam.fy, cam.cx,
+                                 cam.cy, w, h)
+    gen = torch.Generator(dev).manual_seed(3)
+    feats = torch.rand(n, 7, device=dev, generator=gen)
+    op = torch.sigmoid(gt.opacities)
+    w_img = torch.randn(h, w, 7, device=dev, generator=gen)
+    w_a = torch.randn(h, w, 1, device=dev, generator=gen)
+    names = ["means2d", "conics", "opacities", "features"]
+    report = {"oracle_grad_check": f"kernel path vs dense oracle, {w}x{h}, "
+              f"{n} Gaussians, 7 channels"}
+    for scheme in ("depthq", "packed"):
+        cfg = RasterizeConfig(width=w, height=h, chunk=128,
+                              pair_capacity=1 << 15, sort_scheme=scheme)
+        grads = {}
+        for path in ("kernel", "oracle"):
+            leaves = [t.detach().clone().requires_grad_(True)
+                      for t in (proj.means2d, proj.conics, op, feats)]
+            before = (rc.LAUNCHES["backward_tiles"],
+                      rc.LAUNCHES["reduce_segments_bykey"])
+            if path == "kernel":
+                img, a = rasterize(leaves[0], leaves[1], proj.depths,
+                                   leaves[2], leaves[3], proj.valid, cfg,
+                                   radii=proj.radii)
+            else:
+                img, a = rasterize_pixels_ref(
+                    leaves[0], leaves[1], proj.depths, leaves[2], leaves[3],
+                    proj.valid, w, h, radii=proj.radii)
+            loss = (img * w_img).sum() + (a * w_a).sum()
+            grads[path] = torch.autograd.grad(loss, leaves)
+            after = (rc.LAUNCHES["backward_tiles"],
+                     rc.LAUNCHES["reduce_segments_bykey"])
+            if path == "kernel" and after != (before[0] + 1, before[1] + 1):
+                raise AssertionError("the autograd function did not launch "
+                                     "both backward kernels")
+        for name, gk, go in zip(names, grads["kernel"], grads["oracle"]):
+            scale = max(float(go.abs().max()), 1e-6)
+            err = (gk - go).abs() / scale
+            allowed = GRAD_ATOL + GRAD_RTOL * go.abs() / scale
+            worst = float((err - allowed).max())
+            report[f"{scheme}.{name}.max_scaled_err"] = float(err.max())
+            if worst > 0.0:
+                raise AssertionError(
+                    f"gradient of {name} under {scheme} is off the dense "
+                    f"oracle's by {float(err.max())} of its scale")
+    return report
+
+
 def main() -> int:
     try:
         import torch
@@ -492,29 +889,43 @@ def main() -> int:
                       "built": sorted(reports)}), flush=True)
 
     dev = torch.device("cuda")
-    totals = {"expand_segments": 0, "expand_segments_stream": 0,
-              "forward_tiles": 0}
+    names = ("expand_segments", "expand_segments_stream", "forward_tiles",
+             "backward_tiles", "reduce_segments_bykey")
+    totals = dict.fromkeys(names, 0)
     kernel_rows = {}
+
+    def keep(summary, reps, launches, scene):
+        for k, v in launches.items():
+            totals[k] += v
+        for rep in reps:
+            print(json.dumps(rep), flush=True)
+            kernel_rows[(rep["kernel"], scene)] = rep
+        print(json.dumps(summary), flush=True)
+
     with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=REPO) as tmp:
         for seed, (name, n, shift, extent, cap) in enumerate(SCENES):
-            summary, reps, launches = run_scene(
-                name, n, shift, extent, cap, seed, dev, gpu, Path(tmp))
-            for k, v in launches.items():
-                totals[k] += v
-            for rep in reps:
-                print(json.dumps(rep), flush=True)
-                kernel_rows[(rep["kernel"], name)] = rep
-            print(json.dumps(summary), flush=True)
+            keep(*run_scene(name, n, shift, extent, cap, seed, dev, gpu,
+                            Path(tmp)), name)
     print(json.dumps(oracle_check(dev)), flush=True)
+    for seed, (name, n, shift, extent, cap) in enumerate(SCENES):
+        refine = name == "100k"
+        keep(*run_training(
+            name, n, shift, extent, cap, seed, dev, gpu,
+            TRAIN_STEPS_100K if refine else TRAIN_STEPS_1M,
+            REFINE_KW if refine else {}, refine), f"train_{name}")
+    print(json.dumps(oracle_grad_check(dev)), flush=True)
 
     src = "dnsplatter_torch/csrc/"
+    pallas = "dnsplatter_tpu/ops/rasterize_pallas.py"
     kinds = (
-        ("expand_segments", "100k", "expand_segments.cu",
-         "dnsplatter_tpu/ops/rasterize_pallas.py:248"),
+        ("expand_segments", "100k", "expand_segments.cu", f"{pallas}:248"),
         ("expand_segments_stream", "1m", "expand_segments.cu",
-         "dnsplatter_tpu/ops/rasterize_pallas.py:315"),
-        ("forward_tiles", "1m", "forward_tiles.cu",
-         "dnsplatter_tpu/ops/rasterize_pallas.py:527"),
+         f"{pallas}:315"),
+        ("forward_tiles", "1m", "forward_tiles.cu", f"{pallas}:527"),
+        ("backward_tiles", "train_1m", "backward_tiles.cu",
+         f"{pallas}:1289"),
+        ("reduce_segments_bykey", "train_1m", "reduce_segments_bykey.cu",
+         f"{pallas}:881"),
     )
     kernels = []
     for kname, scene, source, replaces in kinds:

@@ -1,4 +1,5 @@
-"""Image output (the `write_image` of dnsplatter_tpu/data/io.py).
+"""Image output and resizing (the `write_image` and `resize_image` of
+dnsplatter_tpu/data/io.py).
 
 PNGs are encoded here with zlib, so writing renders needs no imaging
 package; the pixel values are those of the JAX package's writer:
@@ -39,3 +40,24 @@ def write_image(path: Path, img: np.ndarray) -> None:
            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
            + _chunk(b"IEND", b""))
     Path(path).write_bytes(png)
+
+
+def resize_image(img: np.ndarray, height: int, width: int,
+                 nearest: bool = False) -> np.ndarray:
+    """Resize an (H, W[, C]) float array (PIL bilinear or nearest), channel
+    by channel in float32."""
+    from PIL import Image
+
+    if img.shape[0] == height and img.shape[1] == width:
+        return img
+    squeeze = img.ndim == 2
+    if squeeze:
+        img = img[..., None]
+    chans = []
+    for c in range(img.shape[-1]):
+        p = Image.fromarray(img[..., c].astype(np.float32), mode="F")
+        p = p.resize((width, height),
+                     Image.NEAREST if nearest else Image.BILINEAR)
+        chans.append(np.asarray(p, np.float32))
+    out = np.stack(chans, axis=-1)
+    return out[..., 0] if squeeze else out

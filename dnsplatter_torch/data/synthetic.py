@@ -17,7 +17,7 @@ from dnsplatter_torch.ops.camera import Camera, look_at
 from dnsplatter_torch.ops.quat import random_quats
 from dnsplatter_torch.ops.rasterize import RasterizeConfig
 from dnsplatter_torch.ops.render import render
-from dnsplatter_torch.ops.sh import num_sh_bases, rgb_to_sh
+from dnsplatter_torch.ops.sh import num_sh_bases, rgb_to_sh, sh_to_rgb
 
 
 def make_gt_gaussians(rng: np.random.Generator, n: int = 800,
@@ -80,6 +80,20 @@ class SyntheticScene:
 
     def get(self, i: int):
         return self.cameras[i], self.batches[i]
+
+    def seed_points(self, rng: np.random.Generator, noise: float = 0.02,
+                    subsample: int = 1, draws: np.ndarray = None):
+        """Noisy seed point cloud from the ground-truth means (a stand-in
+        for SfM points): (points, colours), float32. The standard-normal
+        `draws` come from `rng` unless given."""
+        pts = self.gt_params.means.cpu().numpy()[::subsample]
+        cols = np.clip(
+            sh_to_rgb(self.gt_params.features_dc).cpu().numpy()[::subsample],
+            0, 1)
+        if draws is None:
+            draws = rng.standard_normal(pts.shape).astype(np.float32)
+        pts = pts + np.asarray(draws, np.float32) * noise
+        return pts.astype(np.float32), cols.astype(np.float32)
 
 
 def render_batches(params: GaussianParams, alive: torch.Tensor,

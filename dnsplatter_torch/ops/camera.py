@@ -87,6 +87,13 @@ class Camera:
         """(3,) camera origin in world coordinates."""
         return self.c2w[:3, 3]
 
+    def rescaled(self, factor: float) -> "Camera":
+        """A camera with the output resolution scaled by `factor`."""
+        return Camera(fx=self.fx * factor, fy=self.fy * factor,
+                      cx=self.cx * factor, cy=self.cy * factor, c2w=self.c2w,
+                      width=int(round(self.width * factor)),
+                      height=int(round(self.height * factor)))
+
 
 def pixel_coords(width: int, height: int, pixel_offset: float = 0.5,
                  device=None) -> torch.Tensor:

@@ -21,7 +21,8 @@ from typing import Dict, Iterable
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("expand_segments", "forward_tiles")
+SOURCES = ("expand_segments", "forward_tiles", "backward_tiles",
+           "reduce_segments_bykey")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

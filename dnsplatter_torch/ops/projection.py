@@ -115,19 +115,21 @@ def project_gaussians(
     conic = torch.stack([c_b / det_safe, -b / det_safe, a_b / det_safe],
                         dim=-1)
 
-    mid = 0.5 * (a_b + c_b)
-    disc = torch.sqrt(torch.clamp_min(mid * mid - det, 0.01))
-    vmax = mid + disc
-    if opacities is not None:
-        op = opacities.detach()
-        sigma_bound = torch.clamp_max(
-            torch.log(torch.clamp_min(255.0 * op, 1e-12)), 4.5)
-    else:
-        sigma_bound = torch.full_like(vmax, 4.5)
-    sb = torch.clamp_min(sigma_bound, 0.0)
-    radius = torch.ceil(torch.sqrt(2.0 * sb * torch.clamp_min(vmax, 0.0)))
-    rx = torch.ceil(torch.sqrt(2.0 * sb * torch.clamp_min(a_b, 0.0)))
-    ry = torch.ceil(torch.sqrt(2.0 * sb * torch.clamp_min(c_b, 0.0)))
+    # The screen extents only select tiles: they stay out of the graph
+    # (their ceil has no gradient, and sqrt at 0 would make one up).
+    with torch.no_grad():
+        mid = 0.5 * (a_b + c_b)
+        disc = torch.sqrt(torch.clamp_min(mid * mid - det, 0.01))
+        vmax = mid + disc
+        if opacities is not None:
+            sigma_bound = torch.clamp_max(
+                torch.log(torch.clamp_min(255.0 * opacities, 1e-12)), 4.5)
+        else:
+            sigma_bound = torch.full_like(vmax, 4.5)
+        sb = torch.clamp_min(sigma_bound, 0.0)
+        radius = torch.ceil(torch.sqrt(2.0 * sb * torch.clamp_min(vmax, 0.0)))
+        rx = torch.ceil(torch.sqrt(2.0 * sb * torch.clamp_min(a_b, 0.0)))
+        ry = torch.ceil(torch.sqrt(2.0 * sb * torch.clamp_min(c_b, 0.0)))
 
     mean2d = torch.stack([fx * mean_c[..., 0] * rz + cx,
                           fy * mean_c[..., 1] * rz + cy], dim=-1)

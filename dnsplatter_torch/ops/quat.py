@@ -64,3 +64,57 @@ def random_quats(rng: np.random.Generator, n: int,
         ],
         dim=-1,
     )
+
+
+def rotmat_to_quat(mat: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """(..., 3, 3) rotation matrices -> (..., 4) wxyz quaternions with
+    w >= 0: of the four candidates (one per largest pivot) the numerically
+    safest is taken."""
+    m00, m01, m02 = mat[..., 0, 0], mat[..., 0, 1], mat[..., 0, 2]
+    m10, m11, m12 = mat[..., 1, 0], mat[..., 1, 1], mat[..., 1, 2]
+    m20, m21, m22 = mat[..., 2, 0], mat[..., 2, 1], mat[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw = torch.stack([1.0 + tr, m21 - m12, m02 - m20, m10 - m01], -1)
+    qx = torch.stack([m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10,
+                      m02 + m20], -1)
+    qy = torch.stack([m02 - m20, m01 + m10, 1.0 - m00 + m11 - m22,
+                      m12 + m21], -1)
+    qz = torch.stack([m10 - m01, m02 + m20, m12 + m21,
+                      1.0 - m00 - m11 + m22], -1)
+    pivots = torch.stack([1.0 + tr, 1.0 + m00 - m11 - m22,
+                          1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22], -1)
+    best = torch.argmax(pivots, dim=-1)
+    cands = torch.stack([qw, qx, qy, qz], dim=-2)  # (..., 4 candidates, 4)
+    idx = best[..., None, None].expand(best.shape + (1, 4))
+    q = torch.gather(cands, -2, idx)[..., 0, :]
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True).clamp_min(eps)
+    return q * torch.where(q[..., :1] < 0.0, -1.0, 1.0)
+
+
+def rotate_vector_to_vector(v1: torch.Tensor, v2: torch.Tensor,
+                            eps: float = 1e-8) -> torch.Tensor:
+    """Minimal rotation matrices (N, 3, 3) carrying each v1 onto v2
+    (Rodrigues); antiparallel pairs turn by pi about an axis orthogonal to
+    v1."""
+    a = v1 / torch.linalg.norm(v1, dim=-1, keepdim=True).clamp_min(eps)
+    b = v2 / torch.linalg.norm(v2, dim=-1, keepdim=True).clamp_min(eps)
+    v = torch.linalg.cross(a, b, dim=-1)
+    c = torch.sum(a * b, dim=-1)
+    s = torch.linalg.norm(v, dim=-1)
+    zeros = torch.zeros_like(c)
+    kmat = torch.stack(
+        [zeros, -v[..., 2], v[..., 1],
+         v[..., 2], zeros, -v[..., 0],
+         -v[..., 1], v[..., 0], zeros], dim=-1,
+    ).reshape(v.shape[:-1] + (3, 3))
+    eye = torch.eye(3, dtype=v1.dtype, device=v1.device).expand_as(kmat)
+    factor = (1.0 - c) / (s * s).clamp_min(eps)
+    rot = eye + kmat + (kmat @ kmat) * factor[..., None, None]
+    x_axis = torch.tensor([1.0, 0.0, 0.0], dtype=v1.dtype, device=v1.device)
+    y_axis = torch.tensor([0.0, 1.0, 0.0], dtype=v1.dtype, device=v1.device)
+    ortho = torch.where(a[..., :1].abs() < 0.9, x_axis, y_axis)
+    axis = torch.linalg.cross(a, ortho, dim=-1)
+    axis = axis / torch.linalg.norm(axis, dim=-1, keepdim=True).clamp_min(eps)
+    flip = 2.0 * axis[..., :, None] * axis[..., None, :] - eye
+    antiparallel = c < (-1.0 + 1e-6)
+    return torch.where(antiparallel[..., None, None], flip, rot)

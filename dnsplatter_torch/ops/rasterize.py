@@ -1,11 +1,16 @@
-"""Tiled rasterizer, forward (counterpart of dnsplatter_tpu/ops/rasterize.py).
+"""Tiled rasterizer with its backward (counterpart of
+dnsplatter_tpu/ops/rasterize.py).
 
-The layout is the JAX package's pallas path: Gaussians are depth-sorted
-once, one table gather serves binning and the pair payload, and a single
-key sort `tile * (N + 1) + gauss` emits the dense CSR pair list, whose
-sorted keys decode to per-pair Gaussian indices. Per-pair binning fields
-come from the `expand_segments` kernel and compositing runs in the
-`forward_tiles` kernel (ops/rasterize_cuda.py). Sorts, argsorts, gathers
+The layout is the JAX package's pallas path. Under the exact schemes
+(`packed`, `packed32`, `auto`) Gaussians are depth-sorted once, one table
+gather serves binning and the pair payload, and a single key sort
+`tile * (N + 1) + gauss` emits the dense CSR pair list, whose sorted keys
+decode to per-pair Gaussian indices. Under `depthq` (the Trainer's scheme)
+there is no depth pre-sort: the key is `tile * 2^qb + quantized depth` and
+the Gaussian id rides the sort as payload. Per-pair binning fields come
+from the `expand_segments` kernel, compositing runs in `forward_tiles`, its
+gradient in `backward_tiles`, and the per-Gaussian sums in
+`reduce_segments_bykey` (ops/rasterize_cuda.py). Sorts, argsorts, gathers
 and cumsums stay PyTorch ops, as they were XLA ops outside Pallas.
 
 Semantics match `rasterize_pixels_ref`: alpha = min(0.999, op *
@@ -13,8 +18,9 @@ exp(-sigma)), skipped below 1/255 or for sigma < 0; a pixel ends when the
 would-be next transmittance drops to <= 1e-4, excluding the Gaussian that
 trips it.
 
-This slice is forward only: `sort_scheme` "depthq" and "tilekey",
-`exact_cull`, and inputs that require grad raise NotImplementedError.
+Not ported yet (each raises NotImplementedError naming its ROADMAP item):
+`sort_scheme="tilekey"`, `exact_cull`, and for the backward
+`compact_frac == 0`, `reduce_pieces > 1` and `grad_reduce="segsum"`.
 """
 
 from __future__ import annotations
@@ -33,10 +39,13 @@ UINT32_MAX = 2**32 - 1
 @dataclasses.dataclass(frozen=True)
 class RasterizeConfig:
     """Static rasterizer configuration; the JAX package's fields and
-    defaults. `backend`, `tile_block`, `grad_reduce`, `reduce_pieces`
-    and `compact_frac` shape the JAX backends and backward; the port's
-    forward has one path (the kernels) and reads them only for
-    `n_tiles_padded`, which `tile_block` sets."""
+    defaults. The port has one path (the kernels), so `backend` is not
+    read and `tile_block` only sets `n_tiles_padded`. The backward is the
+    sortpack reduction by key: `compact_frac` in (0, 1) drops the pair
+    slots past each tile's deepest contributor before the reduction sort
+    (they hold exact zeros), >= 1 keeps them; its value inside (0, 1) sized
+    the JAX package's static window budget and is not needed here, where
+    the kept length follows the data."""
 
     width: int
     height: int
@@ -83,8 +92,8 @@ class _Binned:
     occupy [starts[t], starts[t] + counts[t]) in front-to-back order; dead
     slots (pair_gauss == N) lie past starts[-1]."""
 
-    order: torch.Tensor  # (N,) depth sort permutation
-    pair_gauss: torch.Tensor  # (C + chunk,) depth-sorted gaussian index
+    order: torch.Tensor  # (N,) depth sort permutation (identity: depthq)
+    pair_gauss: torch.Tensor  # (C + chunk,) index into the payload table
     pair_orig: torch.Tensor  # (C + chunk,) original gaussian id
     starts: torch.Tensor  # (T_padded + 1,) int32
     counts: torch.Tensor  # (T_padded,) int32
@@ -93,10 +102,10 @@ class _Binned:
 
 
 def _sort_key_bias(cfg: RasterizeConfig, n: int) -> int:
-    """Resolve the sort scheme and return the bias that maps its key
+    """Resolve an exact sort scheme and return the bias that maps its key
     `tile * (N + 1) + gauss` into int32: 0 for `packed` (the key fits
     int32), 2^31 for `packed32` (it fits uint32). `auto` picks packed, then
-    packed32, then tilekey (not ported)."""
+    packed32, then tilekey (not ported). `depthq` has its own key."""
     scheme = cfg.sort_scheme
     bound = (cfg.n_tiles_padded + 1) * (n + 1)
     if scheme == "auto":
@@ -109,10 +118,10 @@ def _sort_key_bias(cfg: RasterizeConfig, n: int) -> int:
                 "sort_scheme 'tilekey' (auto above (tiles+1)*(N+1) > 2^32, "
                 "about 1.86M Gaussians at 1024x576) is not ported yet: "
                 "ROADMAP.md queue A item 3")
-    if scheme in ("depthq", "tilekey"):
+    if scheme == "tilekey":
         raise NotImplementedError(
-            f"sort_scheme {scheme!r} is not ported yet: ROADMAP.md queue A "
-            "item 3 (depthq comes with the training slice)")
+            "sort_scheme 'tilekey' is not ported yet: ROADMAP.md queue A "
+            "item 3")
     if scheme == "packed":
         if bound > INT32_MAX:
             raise ValueError("packed sort key overflows int32 at this "
@@ -148,10 +157,11 @@ def bin_gaussians(
     """Global depth sort + dense CSR tile pair list in one sort (see the
     JAX docstring, rasterize.py:286-313).
 
-    Gaussians whose pair range does not fit `pair_capacity` drop whole,
-    deepest first. `order` + `fields_sorted` (the depth-sorted payload
-    table with radii_x, radii_y, validf in columns 13..15) skip the
-    internal gathers.
+    Gaussians whose pair range does not fit `pair_capacity` drop whole:
+    deepest first under the exact schemes, in array order under `depthq`,
+    which has no depth pre-sort. `order` + `fields_sorted` (the
+    depth-sorted payload table with radii_x, radii_y, validf in columns
+    13..15) skip the internal gathers.
     """
     if cfg.exact_cull:
         raise NotImplementedError(
@@ -162,22 +172,34 @@ def bin_gaussians(
     c = cfg.pair_capacity
     k = cfg.chunk
     t_pad = cfg.n_tiles_padded
-    key_bias = _sort_key_bias(cfg, n)
+    depthq = cfg.sort_scheme == "depthq"
     valid = validf > 0.5
 
-    if order is None:
-        order = torch.argsort(torch.where(valid, depths, torch.inf),
-                              stable=True)
-    if fields_sorted is not None:
-        m2d_s = fields_sorted[:, 0:2]
-        rad_s = fields_sorted[:, 13:15]
-        valid_s = fields_sorted[:, 15] > 0.5
+    if depthq:
+        qbits = 32 - max(int(t_pad + 1).bit_length(), 1)
+        if qbits < 14:
+            raise ValueError(f"depthq needs >= 14 depth bits, got {qbits} "
+                             f"at {t_pad} padded tiles; use "
+                             "sort_scheme='auto'")
+        order = torch.arange(n, dtype=torch.int64, device=dev)
+        m2d_s = means2d
+        rad_s = radii if radii.ndim == 2 else torch.stack([radii, radii], -1)
+        valid_s = valid
     else:
-        m2d_s = means2d[order]
-        rad_s = radii[order]
-        if rad_s.ndim == 1:
-            rad_s = torch.stack([rad_s, rad_s], -1)
-        valid_s = valid[order]
+        key_bias = _sort_key_bias(cfg, n)
+        if order is None:
+            order = torch.argsort(torch.where(valid, depths, torch.inf),
+                                  stable=True)
+        if fields_sorted is not None:
+            m2d_s = fields_sorted[:, 0:2]
+            rad_s = fields_sorted[:, 13:15]
+            valid_s = fields_sorted[:, 15] > 0.5
+        else:
+            m2d_s = means2d[order]
+            rad_s = radii[order]
+            if rad_s.ndim == 1:
+                rad_s = torch.stack([rad_s, rad_s], -1)
+            valid_s = valid[order]
 
     x0 = _tile_index(m2d_s[:, 0] - rad_s[:, 0], ts, cfg.tiles_x, False)
     x1 = _tile_index(m2d_s[:, 0] + rad_s[:, 0], ts, cfg.tiles_x, True)
@@ -212,18 +234,37 @@ def bin_gaussians(
     starts = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
                         torch.cumsum(tile_counts, 0)])
 
-    # Per-pair fields [gauss, offset, packed bbox, original id] as
-    # piecewise-constant runs over the pair axis: the expand kernel.
+    # Per-pair fields [gauss, offset, packed bbox, row 4] as
+    # piecewise-constant runs over the pair axis: the expand kernel. Row 4
+    # is the original id under the exact schemes; under depthq row 0 is
+    # already the original id and row 4 carries the quantized depth.
     pos = torch.arange(c, dtype=torch.int64, device=dev)
     live = pos < total
     pack_xyw = cfg.tiles_x < 128 and cfg.tiles_y < 128
     gid = torch.arange(n, dtype=torch.int32, device=dev)
+    if depthq:
+        qmax = (1 << qbits) - 1
+        dmin = torch.where(valid, depths, torch.inf).amin()
+        dmax = torch.where(valid, depths, -torch.inf).amax()
+        dmin = torch.where(torch.isfinite(dmin), dmin, 0.0)
+        dmax = torch.where(torch.isfinite(dmax), dmax, 0.0)
+        span = torch.clamp_min(dmax - dmin, 1e-12)
+        qdf = torch.clamp(torch.round((depths - dmin) / span * (qmax - 1)),
+                          0.0, float(qmax - 1))
+        # Clamped once more as an integer: above 24 depth bits (fewer than
+        # 255 padded tiles) float32 rounds qmax - 1 up to 2^qbits, and the
+        # deepest Gaussian's key would carry into the next tile's range
+        # (the JAX package files it there; see ROADMAP.md section C).
+        row4 = torch.nan_to_num(torch.where(valid, qdf, 0.0)).to(
+            torch.int32).clamp_max(qmax - 1)
+    else:
+        row4 = order.int()
     if pack_xyw:
         xyw = (x0 * 128 + y0) * 256 + w.clamp_min(1)
-        vals = torch.stack([gid, offsets.int(), xyw, order.int()])
+        vals = torch.stack([gid, offsets.int(), xyw, row4])
     else:
         vals = torch.stack([gid, offsets.int(), w.clamp_min(1),
-                            x0 * 4096 + y0, order.int()])
+                            x0 * 4096 + y0, row4])
     gauss_starts = torch.cat([offsets, total[None]]).to(torch.int32)
     acc = rc.expand_segments(vals, gauss_starts, c).long()
     pair_gauss0 = acc[0]
@@ -232,31 +273,48 @@ def bin_gaussians(
         wg = (acc[2] % 256).clamp_min(1)
         x0p = acc[2] // 32768
         y0p = (acc[2] // 256) % 128
-        orig0 = acc[3]
+        row4_pair = acc[3]
     else:
         wg = acc[2].clamp_min(1)
         x0p = acc[3] // 4096
         y0p = acc[3] % 4096
-        orig0 = acc[4]
+        row4_pair = acc[4]
+    orig0 = pair_gauss0 if depthq else row4_pair
     tile_id = x0p + rank % wg + (y0p + rank // wg) * cfg.tiles_x
     tile_id = tile_id.clamp(0, t_pad)
-
-    # One sort on the packed key, as int32 (the bias shifts packed32's
-    # uint32 range down, keeping the order), so the radix sort makes the
-    # passes of a 32-bit key. Keys are unique over live pairs, so the
-    # layout is deterministic.
-    big = n + 1
-    sentinel = t_pad * big + n
-    key = torch.where(live, tile_id * big + pair_gauss0, sentinel)
-    keys, perm = torch.sort((key - key_bias).to(torch.int32))
     ov = torch.where(live, orig0, n)
-    pair_orig = ov[perm]
-    pair_gauss = (keys.long() + key_bias) % big
+
+    # One sort on the key, as int32 (the bias shifts a uint32 range down,
+    # keeping the order), so the radix sort makes the passes of a 32-bit
+    # key.
+    if depthq:
+        # key = tile * 2^qb + quantized depth (uint32); the id rides as
+        # payload. Dead lanes take qmax, above any real depth, and land
+        # past the last tile. Equal keys (one tile, one quantized depth)
+        # keep their pre-sort order, ascending id: the sort is stable, so
+        # the layout is the same from run to run.
+        bigq = qmax + 1
+        sentinel = t_pad * bigq + qmax
+        key = torch.where(live, tile_id * bigq + row4_pair, sentinel)
+        _, perm = torch.sort((key - 2**31).to(torch.int32), stable=True)
+        pair_gauss = ov[perm]
+        pair_orig = pair_gauss
+    else:
+        # tile * (N + 1) + gauss: unique over live pairs.
+        big = n + 1
+        sentinel = t_pad * big + n
+        key = torch.where(live, tile_id * big + pair_gauss0, sentinel)
+        keys, perm = torch.sort((key - key_bias).to(torch.int32))
+        pair_orig = ov[perm]
+        pair_gauss = (keys.long() + key_bias) % big
     tail = torch.full((k,), n, dtype=torch.int64, device=dev)
+    pair_gauss = torch.cat([pair_gauss, tail]).to(torch.int32)
+    pair_orig = (pair_gauss if depthq
+                 else torch.cat([pair_orig, tail]).to(torch.int32))
     return _Binned(
         order=order,
-        pair_gauss=torch.cat([pair_gauss, tail]).to(torch.int32),
-        pair_orig=torch.cat([pair_orig, tail]).to(torch.int32),
+        pair_gauss=pair_gauss,
+        pair_orig=pair_orig,
         starts=starts.to(torch.int32),
         counts=tile_counts.to(torch.int32),
         gauss_starts=gauss_starts,
@@ -275,10 +333,29 @@ def _tiles_to_image(cfg: RasterizeConfig, tiles: torch.Tensor
     return img[:cfg.height, :cfg.width]
 
 
+def _image_to_tiles(cfg: RasterizeConfig, img: torch.Tensor) -> torch.Tensor:
+    """(H, W, F) -> zero-padded (T_padded, P, F) tile-major buffer."""
+    ts = cfg.tile_size
+    f = img.shape[-1]
+    full = torch.zeros((cfg.tiles_y * ts, cfg.tiles_x * ts, f),
+                       dtype=img.dtype, device=img.device)
+    full[:cfg.height, :cfg.width] = img
+    t = full.reshape(cfg.tiles_y, ts, cfg.tiles_x, ts, f)
+    t = t.permute(0, 2, 1, 3, 4).reshape(cfg.n_tiles, ts * ts, f)
+    pad_tiles = cfg.n_tiles_padded - cfg.n_tiles
+    if pad_tiles:
+        t = torch.cat([t, torch.zeros((pad_tiles, ts * ts, f), dtype=t.dtype,
+                                      device=t.device)])
+    return t
+
+
 def _raster_fwd(cfg: RasterizeConfig, means2d, conics, opacities, features,
                 depths, radii, validf):
-    """The depth-ordered table path (JAX rasterize.py:1015-1026 and
-    :1058-1095): one (N, 16) gather feeds binning and the payload."""
+    """Binning, payload and `forward_tiles` (JAX rasterize.py:986-1095).
+    Under the exact schemes one depth-ordered (N, 16) gather feeds binning
+    and the payload; under depthq the payload table is a plain concat in
+    original order. Returns (image, alpha) and the residuals of the
+    backward: (binned, payload, t_final, last)."""
     n = means2d.shape[0]
     f = features.shape[-1]
     if not 1 <= f <= rc.MAX_FEATS:
@@ -286,21 +363,26 @@ def _raster_fwd(cfg: RasterizeConfig, means2d, conics, opacities, features,
                          f"got {f}")
     dev = means2d.device
     opac_masked = torch.where(validf > 0.5, opacities, 0.0)
-    order = torch.argsort(torch.where(validf > 0.5, depths, torch.inf),
-                          stable=True)
-    if f <= 7:
-        fields = torch.cat(
-            [means2d, conics, opac_masked[:, None], features,
-             torch.zeros((n, 13 - 6 - f), device=dev), radii,
-             validf[:, None]], dim=-1)
-        fields_s = fields[order]
-        binned = bin_gaussians(cfg, means2d, depths, radii, validf,
-                               order=order, fields_sorted=fields_s)
-    else:  # 8 channels leave no room for the binning columns
+    if cfg.sort_scheme == "depthq":
         fields_s = torch.cat([means2d, conics, opac_masked[:, None],
-                              features], dim=-1)[order]
-        binned = bin_gaussians(cfg, means2d, depths, radii, validf,
-                               order=order)
+                              features], dim=-1)
+        binned = bin_gaussians(cfg, means2d, depths, radii, validf)
+    else:
+        order = torch.argsort(torch.where(validf > 0.5, depths, torch.inf),
+                              stable=True)
+        if f <= 7:
+            fields = torch.cat(
+                [means2d, conics, opac_masked[:, None], features,
+                 torch.zeros((n, 13 - 6 - f), device=dev), radii,
+                 validf[:, None]], dim=-1)
+            fields_s = fields[order]
+            binned = bin_gaussians(cfg, means2d, depths, radii, validf,
+                                   order=order, fields_sorted=fields_s)
+        else:  # 8 channels leave no room for the binning columns
+            fields_s = torch.cat([means2d, conics, opac_masked[:, None],
+                                  features], dim=-1)[order]
+            binned = bin_gaussians(cfg, means2d, depths, radii, validf,
+                                   order=order)
 
     pw = 6 + f
     pw_pad = -(-pw // 8) * 8
@@ -308,12 +390,110 @@ def _raster_fwd(cfg: RasterizeConfig, means2d, conics, opacities, features,
     rows = table[binned.pair_gauss.long()]  # (C + K, 6 + F)
     payload = torch.zeros((pw_pad, rows.shape[0]), device=dev)
     payload[:pw] = rows.T
-    out_t, tfin_t, _ = rc.forward_tiles(
+    out_t, tfin_t, last_t = rc.forward_tiles(
         payload, binned.starts, binned.counts, cfg.n_tiles_padded, f,
         cfg.tile_size, cfg.tiles_x, cfg.chunk)
     image = _tiles_to_image(cfg, out_t.permute(0, 2, 1))
     alpha = _tiles_to_image(cfg, (1.0 - tfin_t).permute(0, 2, 1))
-    return image, alpha
+    return (image, alpha), (binned, payload, tfin_t, last_t)
+
+
+def live_pair_slots(cfg: RasterizeConfig, binned: _Binned,
+                    last_t: torch.Tensor) -> torch.Tensor:
+    """Indices of the pair slots at or before their tile's deepest
+    contributor, ascending. Every other slot holds an exact-zero gradient
+    (`backward_tiles` never writes it). The length follows the data, so
+    this reads one count back from the device."""
+    t_pad = cfg.n_tiles_padded
+    p = cfg.tile_size * cfg.tile_size
+    ml = last_t.reshape(t_pad, p).amax(dim=1).long()
+    counts = binned.counts.long()
+    lc = torch.minimum(ml + 1, counts)
+    s = binned.starts[:-1].long()
+    has = (lc > 0).long()
+    mark = torch.zeros(cfg.pair_buffer + 1, dtype=torch.int64,
+                       device=last_t.device)
+    mark.index_add_(0, s, has)
+    mark.index_add_(0, s + lc, -has)
+    return torch.nonzero(torch.cumsum(mark[:-1], 0) > 0)[:, 0]
+
+
+def _raster_bwd(cfg: RasterizeConfig, residuals, g_image, g_alpha, n: int):
+    """Per-Gaussian gradients (JAX `_raster_bwd_pallas` :1388 with
+    `_reduce_bykey` :1273): `backward_tiles` packs the per-pair gradients,
+    the live slots are sorted by original Gaussian id, and
+    `reduce_segments_bykey` sums each id's run, so the result is in
+    original parameter order under every sort scheme. Returns (N, 8 + F):
+    [dmx, dmy, da, db, dc, dop, df.., |dmx|, |dmy|]."""
+    binned, payload, tfin_t, last_t = residuals
+    f = g_image.shape[-1]
+    g_out_t = _image_to_tiles(cfg, g_image).permute(0, 2, 1).contiguous()
+    g_alpha_t = _image_to_tiles(cfg, g_alpha).permute(0, 2, 1).contiguous()
+    slab = rc.backward_tiles(
+        payload, binned.starts, binned.counts, g_out_t, g_alpha_t, tfin_t,
+        last_t, cfg.n_tiles_padded, f, cfg.tile_size, cfg.tiles_x, cfg.chunk,
+        pack_grads=True)
+    nlive = 6 + f
+    ru = rc.packed_rows(f)
+    keys = binned.pair_orig
+    vals = slab[:ru]
+    if cfg.compact_frac < 1.0:
+        slots = live_pair_slots(cfg, binned, last_t)
+        keys = keys[slots]
+        vals = vals[:, slots]
+    # int32 keys: a 32-bit radix sort, stable so that each id's lanes keep
+    # one order from run to run; dead slots carry the sentinel N and land
+    # at the end, where the reduction never looks.
+    keys_s, perm = torch.sort(keys, stable=True)
+    sorted_slab = torch.empty((ru + 1, keys_s.shape[0]), dtype=torch.int32,
+                              device=slab.device)
+    sorted_slab[:ru] = vals[:, perm]
+    sorted_slab[ru] = keys_s
+    per = rc.reduce_segments_bykey(sorted_slab, ru, n)
+    return torch.cat([per[:nlive], per[2 * ru:2 * ru + 2]]).T
+
+
+class _RasterizeFn(torch.autograd.Function):
+    """`rasterize` with its hand-written backward (the JAX package's
+    `_rasterize_core` custom VJP). Gradients flow to means2d, conics,
+    opacities and features; `absgrad_sink` receives (|dmx|, |dmy|) summed
+    per Gaussian, the densification statistic; depths, radii and validf
+    get none."""
+
+    @staticmethod
+    def forward(ctx, cfg, means2d, conics, opacities, features, absgrad_sink,
+                depths, radii, validf):
+        (image, alpha), residuals = _raster_fwd(
+            cfg, means2d, conics, opacities, features, depths, radii, validf)
+        ctx.cfg = cfg
+        ctx.n = means2d.shape[0]
+        ctx.residuals = residuals
+        return image, alpha
+
+    @staticmethod
+    def backward(ctx, g_image, g_alpha):
+        cfg = ctx.cfg
+        f = g_image.shape[-1]
+        out = _raster_bwd(cfg, ctx.residuals, g_image, g_alpha, ctx.n)
+        return (None, out[:, 0:2], out[:, 2:5], out[:, 5], out[:, 6:6 + f],
+                out[:, 6 + f:8 + f], None, None, None)
+
+
+def _check_backward_config(cfg: RasterizeConfig) -> None:
+    if cfg.grad_reduce != "sortpack":
+        raise NotImplementedError(
+            f"grad_reduce {cfg.grad_reduce!r} (the exact float32 reduction, "
+            "Pallas kernel reduce_segments) is not ported yet: ROADMAP.md "
+            "queue B item 7")
+    if cfg.reduce_pieces > 1:
+        raise NotImplementedError(
+            "reduce_pieces > 1 (Pallas kernel reduce_segments_packed_multi) "
+            "is not ported yet: ROADMAP.md queue B item 6")
+    if cfg.compact_frac <= 0.0:
+        raise NotImplementedError(
+            "compact_frac == 0 (the boundary reduction, Pallas kernel "
+            "reduce_segments_packed) is not ported yet: ROADMAP.md queue B "
+            "item 5")
 
 
 def rasterize(
@@ -324,34 +504,43 @@ def rasterize(
     features: torch.Tensor,
     valid: torch.Tensor,
     cfg: RasterizeConfig,
+    absgrad_sink: Optional[torch.Tensor] = None,
     radii: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Tile-rasterize screen-space Gaussians (forward only).
+    """Tile-rasterize screen-space Gaussians.
 
     means2d (N, 2) pixel centers, conics (N, 3), depths (N,) camera z,
     opacities (N,) post-sigmoid, features (N, F) with F <= 8, valid (N,)
     bool or {0,1}, radii (N,) or (N, 2) screen extents (default: the
-    3-sigma radius of the conic). Returns (image (H, W, F),
-    alpha (H, W, 1)).
+    3-sigma radius of the conic). `absgrad_sink`: optional (N, 2) zeros
+    whose gradient is the absolute screen-space gradient. Returns
+    (image (H, W, F), alpha (H, W, 1)); differentiable in means2d, conics,
+    opacities and features.
     """
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (means2d, conics, opacities, features)):
-        raise NotImplementedError(
-            "rasterize has no backward in the port yet (the autograd "
-            "function with backward_tiles comes with the training slice, "
-            "ROADMAP.md queue A item 3); call it under torch.no_grad()")
     validf = valid.to(torch.float32)
     if radii is None:
-        a, b, c = conics.unbind(-1)
-        det_inv = torch.clamp_min(a * c - b * b, 1e-12)
-        ca = c / det_inv
-        cc = a / det_inv
-        mid = 0.5 * (ca + cc)
-        disc = torch.sqrt(torch.clamp_min(
-            mid * mid - (ca * cc - (b / det_inv) ** 2), 0.0))
-        radii = torch.ceil(3.0 * torch.sqrt(torch.clamp_min(mid + disc,
-                                                            0.0)))
+        with torch.no_grad():
+            a, b, c = conics.unbind(-1)
+            det_inv = torch.clamp_min(a * c - b * b, 1e-12)
+            ca = c / det_inv
+            cc = a / det_inv
+            mid = 0.5 * (ca + cc)
+            disc = torch.sqrt(torch.clamp_min(
+                mid * mid - (ca * cc - (b / det_inv) ** 2), 0.0))
+            radii = torch.ceil(3.0 * torch.sqrt(torch.clamp_min(mid + disc,
+                                                                0.0)))
     if radii.ndim == 1:
         radii = torch.stack([radii, radii], -1)
-    return _raster_fwd(cfg, means2d, conics, opacities, features, depths,
-                       radii, validf)
+    diff = (means2d, conics, opacities, features, absgrad_sink)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in diff):
+        _check_backward_config(cfg)
+        if absgrad_sink is None:
+            absgrad_sink = torch.zeros_like(means2d)
+        return _RasterizeFn.apply(cfg, means2d, conics, opacities, features,
+                                  absgrad_sink, depths.detach(),
+                                  radii.detach(), validf)
+    with torch.no_grad():
+        out, _ = _raster_fwd(cfg, means2d, conics, opacities, features,
+                             depths, radii, validf)
+    return out

@@ -26,6 +26,7 @@ ALPHA_THRESHOLD = 1.0 / 255.0
 MAX_ALPHA = 0.999
 TRANSMITTANCE_EPS = 1e-4
 MAX_FEATS = 8
+GW = 16  # rows of the unpacked (float32) gradient slab
 
 LAUNCHES: Dict[str, int] = collections.Counter()
 
@@ -38,6 +39,14 @@ _ENTRIES = {
     "forward_tiles": ("forward_tiles", "dns_forward_tiles",
                       [_VP, ctypes.c_longlong, _VP, _VP, _I, _I, _I, _I,
                        _VP, _VP, _VP, _VP]),
+    "backward_tiles": ("backward_tiles", "dns_backward_tiles",
+                       [_VP, ctypes.c_longlong, _VP, _VP, _I, _I, _I, _I,
+                        _VP, _VP, _VP, _VP, _VP, ctypes.c_longlong, _I,
+                        _VP]),
+    "reduce_segments_bykey": ("reduce_segments_bykey",
+                              "dns_reduce_segments_bykey",
+                              [_VP, ctypes.c_longlong, _I, _I, _I, _VP,
+                               ctypes.c_longlong, _VP]),
 }
 _FNS: Dict[str, ctypes._CFuncPtr] = {}
 
@@ -112,8 +121,9 @@ def _expand_launch(vals: torch.Tensor, starts: torch.Tensor, out_len: int,
     v = vals.to(out_dtype).contiguous()
     s = starts.contiguous()
     out = torch.empty((r, out_len), dtype=out_dtype, device=vals.device)
-    _check_rc(_entry("expand_segments")(v.data_ptr(), s.data_ptr(), out.data_ptr(), r, n, out_len,
-                 _stream()), "expand_segments")
+    _check_rc(_entry("expand_segments")(
+        v.data_ptr(), s.data_ptr(), out.data_ptr(), r, n, out_len,
+        _stream()), "expand_segments")
     return out
 
 
@@ -271,3 +281,277 @@ def forward_tiles(
         "forward_tiles")
     LAUNCHES["forward_tiles"] += 1
     return out, t_final, last
+
+
+# ---------------------------------------------------------------------------
+# bf16 pair packing (ops/rasterize.py:1251 `_pack_bf16_2`,
+# rasterize_pallas.py:1060 `_rne_bf16_bits`)
+# ---------------------------------------------------------------------------
+
+
+def _rne_bf16_bits(x: torch.Tensor) -> torch.Tensor:
+    """Round-to-nearest-even float32 -> bf16 bit pattern in the low 16 bits
+    of an int32 (sign-extended above; callers mask or shift). Integer
+    arithmetic only, as in the kernels."""
+    b = x.contiguous().view(torch.int32)
+    return (b + 0x7FFF + ((b >> 16) & 1)) >> 16
+
+
+def pack_bf16_2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Two float32 tensors -> one int32 tensor holding
+    (bf16(a) << 16) | bf16(b)."""
+    return (_rne_bf16_bits(a) << 16) | (_rne_bf16_bits(b) & 0xFFFF)
+
+
+def unpack_bf16_2(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two bf16 values of each int32 word, as float32 (high half,
+    low half): `bits & 0xFFFF0000` and `bits << 16` read as float32."""
+    w = w.contiguous()
+    hi = (w & -65536).view(torch.float32)
+    lo = (w << 16).view(torch.float32)
+    return hi, lo
+
+
+def packed_rows(n_feats: int) -> int:
+    """int32 rows that hold the 6 + F per-pair gradient fields."""
+    return (6 + n_feats + 1) // 2
+
+
+# ---------------------------------------------------------------------------
+# backward_tiles (rasterize_pallas.py:1289)
+# ---------------------------------------------------------------------------
+
+
+def backward_tiles_plain(payload, tile_starts, tile_counts, g_out, g_alpha,
+                         t_final, last, n_tiles: int, n_feats: int,
+                         tile: int, tiles_x: int, chunk: int,
+                         pack_grads: bool = True,
+                         tile_block: int = 256) -> torch.Tensor:
+    """Plain PyTorch version of `backward_tiles` (any device).
+
+    The Pallas kernel's arithmetic, back to front over K-lane windows
+    aligned down to a chunk boundary: T at entry of pair k is the carried
+    transmittance times exp of an inclusive suffix sum of -log1p(-alpha),
+    q the strict suffix sum of w * fg plus its carry. Tiles are swept
+    `tile_block` at a time, (TB, P, K) per step. Slots past a tile's
+    deepest contributor (and lanes the tile does not own) are never
+    written, so they keep the slab's integer zeros."""
+    dev = payload.device
+    k = chunk
+    p = tile * tile
+    f = n_feats
+    nv = 6 + f
+    width = payload.shape[1]
+    if pack_grads:
+        slab = torch.zeros((8, width), dtype=torch.int32, device=dev)
+    else:
+        slab = torch.zeros((GW, width), dtype=torch.float32, device=dev)
+    lid = torch.arange(p, device=dev)
+    jrow = torch.arange(k, device=dev)
+    for t0 in range(0, n_tiles, tile_block):
+        t1 = min(t0 + tile_block, n_tiles)
+        nt = t1 - t0
+        starts = tile_starts[t0:t1].long()
+        cnt = tile_counts[t0:t1].long()
+        last_b = last[t0:t1].reshape(nt, p, 1).long()
+        ml = last_b.amax(dim=1)[:, 0]  # (TB,) deepest contributor or -1
+        a0 = torch.div(starts, k, rounding_mode="floor") * k
+        hoff = starts - a0
+        nch = torch.where(ml < 0, torch.zeros_like(ml), (hoff + ml + k) // k)
+        max_chunks = int(nch.max()) if nt else 0
+        if max_chunks == 0:
+            continue
+        t_ids = torch.arange(t0, t1, device=dev)
+        px = ((t_ids % tiles_x)[:, None] * tile + lid % tile).float() + 0.5
+        py = ((t_ids // tiles_x)[:, None] * tile + lid // tile).float() + 0.5
+        px, py = px[..., None], py[..., None]  # (TB, P, 1)
+        go = g_out[t0:t1]  # (TB, F, P)
+        ga = g_alpha[t0:t1].reshape(nt, p, 1)
+        tf = t_final[t0:t1].reshape(nt, p, 1)
+        t_back = tf.clone()
+        sacc = torch.zeros_like(tf)
+        for ci in range(max_chunks - 1, -1, -1):
+            run = (ci < nch)[:, None]  # (TB, 1) tiles that replay this chunk
+            idx = (a0[:, None] + ci * k + jrow).clamp_max(width - 1)
+            pay = payload[:, idx]  # (PW, TB, K)
+            jj = ci * k + jrow[None, :] - hoff[:, None]  # (TB, K)
+            owned = (jj >= 0) & (jj < cnt[:, None]) & run
+            mx, my, ca, cb, cc, op = (pay[i][:, None, :] for i in range(6))
+            dx = px - mx
+            dy = py - my
+            sigma = 0.5 * (ca * dx * dx + cc * dy * dy) + cb * dx * dy
+            ealpha = torch.exp(-sigma)
+            alpha = torch.clamp_max(op * ealpha, MAX_ALPHA)
+            hit = ((sigma >= 0.0) & (alpha >= ALPHA_THRESHOLD)
+                   & owned[:, None, :])
+            accept = hit & (jj[:, None, :] <= last_b)
+            alpha_eff = torch.where(accept, alpha, 0.0)
+            one_m = 1.0 - alpha_eff
+            lr = -torch.log1p(-alpha_eff)
+            suf = torch.exp(torch.flip(
+                torch.cumsum(torch.flip(lr, (2,)), dim=2), (2,)))
+            t_entry = t_back * suf
+            w = alpha_eff * t_entry  # (TB, P, K)
+            feats = pay[6:6 + f]  # (F, TB, K)
+            fg = torch.einsum("tfp,ftk->tpk", go, feats)
+            wfg = w * fg
+            q = torch.flip(torch.cumsum(torch.flip(wfg, (2,)), dim=2),
+                           (2,)) - wfg + sacc
+            rcp = 1.0 / one_m
+            g_alpha_k = torch.where(
+                accept, t_entry * fg - q * rcp + ga * tf * rcp, 0.0)
+            not_capped = (alpha < MAX_ALPHA).float()
+            g_sigma = -alpha * g_alpha_k * not_capped
+            rows = [
+                (-g_sigma * (ca * dx + cb * dy)).sum(dim=1),
+                (-g_sigma * (cc * dy + cb * dx)).sum(dim=1),
+                (g_sigma * 0.5 * dx * dx).sum(dim=1),
+                (g_sigma * dx * dy).sum(dim=1),
+                (g_sigma * 0.5 * dy * dy).sum(dim=1),
+                (g_alpha_k * ealpha * not_capped).sum(dim=1),
+            ]
+            g_feat = torch.einsum("tfp,tpk->tfk", go, w)
+            rows += [g_feat[:, i] for i in range(f)]  # each (TB, K)
+            # Written: owned lanes up to the tile's deepest contributor.
+            write = owned & (jj <= ml[:, None])
+            cols = idx[write]
+            if pack_grads:
+                if len(rows) % 2:
+                    rows.append(torch.zeros_like(rows[0]))
+                for ri in range(len(rows) // 2):
+                    word = pack_bf16_2(rows[2 * ri], rows[2 * ri + 1])
+                    slab[ri, cols] = word[write]
+            else:
+                for ri in range(nv):
+                    slab[ri, cols] = rows[ri][write]
+                slab[GW - 2, cols] = rows[0][write].abs()
+                slab[GW - 1, cols] = rows[1][write].abs()
+            t_back = t_back * torch.exp(lr.sum(dim=2, keepdim=True))
+            sacc = sacc + wfg.sum(dim=2, keepdim=True)
+    return slab
+
+
+def backward_tiles(
+    payload: torch.Tensor,
+    tile_starts: torch.Tensor,
+    tile_counts: torch.Tensor,
+    g_out: torch.Tensor,
+    g_alpha: torch.Tensor,
+    t_final: torch.Tensor,
+    last: torch.Tensor,
+    n_tiles: int,
+    n_feats: int,
+    tile: int,
+    tiles_x: int,
+    chunk: int,
+    pack_grads: bool = True,
+) -> torch.Tensor:
+    """Per-pair gradients of the compositing (rasterize_pallas.py:1289).
+
+    Inputs as `forward_tiles`, plus the cotangents g_out (T, F, P) and
+    g_alpha (T, 1, P) and the forward's t_final (T, 1, P) and last
+    (T, 1, P) int32. Returns the per-pair slab over the payload's columns,
+    fields [dmx, dmy, da, db, dc, dop, df0..], each summed over the tile's
+    pixels: with `pack_grads` (8, C) int32 of bf16 pairs
+    [mx,my | a,b | c,op | f0,f1 | ...] (an odd count pads with a zero
+    field), else (16, C) float32 with |dmx|, |dmy| in rows 14-15. Slots
+    past a tile's deepest contributor are integer zeros. The head chunk is
+    already in place: there is no separate staged output, as each tile
+    owns its slots outright. `chunk` is the Pallas window width; the
+    kernel does not need it.
+    """
+    if not _route(payload, "backward_tiles"):
+        return backward_tiles_plain(
+            payload, tile_starts, tile_counts, g_out, g_alpha, t_final, last,
+            n_tiles, n_feats, tile, tiles_x, chunk, pack_grads)
+    p = tile * tile
+    if not 1 <= n_feats <= MAX_FEATS:
+        raise ValueError(f"backward_tiles: 1 <= n_feats <= {MAX_FEATS}")
+    if p > 256 or p % 32:
+        raise ValueError("backward_tiles: tile * tile must be a multiple of "
+                         "32 and <= 256")
+    if (payload.dtype != torch.float32 or payload.ndim != 2
+            or payload.shape[0] < 6 + n_feats or payload.stride(1) != 1):
+        raise ValueError("backward_tiles: payload must be a row-contiguous "
+                         "(>= 6 + F, C) float32 tensor")
+    dev = payload.device
+    for name, t, need in (("tile_starts", tile_starts, n_tiles + 1),
+                          ("tile_counts", tile_counts, n_tiles)):
+        if (t.dtype != torch.int32 or t.ndim != 1 or t.shape[0] < need
+                or t.device != dev or not t.is_contiguous()):
+            raise ValueError(f"backward_tiles: {name} must be a contiguous "
+                             f"int32 vector of >= {need} on the payload's "
+                             "device")
+    for name, t, shape, dt in (
+            ("g_out", g_out, (n_tiles, n_feats, p), torch.float32),
+            ("g_alpha", g_alpha, (n_tiles, 1, p), torch.float32),
+            ("t_final", t_final, (n_tiles, 1, p), torch.float32),
+            ("last", last, (n_tiles, 1, p), torch.int32)):
+        if (t.dtype != dt or tuple(t.shape) != shape or t.device != dev
+                or not t.is_contiguous()):
+            raise ValueError(f"backward_tiles: {name} must be a contiguous "
+                             f"{shape} {dt} tensor on the payload's device")
+    rows, dt = (8, torch.int32) if pack_grads else (GW, torch.float32)
+    slab = torch.zeros((rows, payload.shape[1]), dtype=dt, device=dev)
+    _check_rc(_entry("backward_tiles")(
+        payload.data_ptr(), payload.stride(0), tile_starts.data_ptr(),
+        tile_counts.data_ptr(), n_tiles, n_feats, tile, tiles_x,
+        g_out.data_ptr(), g_alpha.data_ptr(), t_final.data_ptr(),
+        last.data_ptr(), slab.data_ptr(), slab.stride(0),
+        1 if pack_grads else 0, _stream()), "backward_tiles")
+    LAUNCHES["backward_tiles"] += 1
+    return slab
+
+
+# ---------------------------------------------------------------------------
+# reduce_segments_bykey (rasterize_pallas.py:881)
+# ---------------------------------------------------------------------------
+
+
+def reduce_segments_bykey_plain(slab: torch.Tensor, ru: int, n: int
+                                ) -> torch.Tensor:
+    """Plain PyTorch version of `reduce_segments_bykey` (any device): decode
+    the bf16 pairs, then one scatter-add over the keys inside [0, n)."""
+    keys = slab[ru].long()
+    ok = (keys >= 0) & (keys < n)
+    rows = []
+    for i in range(ru):
+        rows += list(unpack_bf16_2(slab[i]))
+    rows += [rows[0].abs(), rows[1].abs()]
+    vals = torch.stack(rows)[:, ok]  # (2 ru + 2, live)
+    out = torch.zeros((2 * ru + 2, n), dtype=torch.float32,
+                      device=slab.device)
+    return out.index_add_(1, keys[ok], vals)
+
+
+def reduce_segments_bykey(slab: torch.Tensor, ru: int, n: int
+                          ) -> torch.Tensor:
+    """Per-Gaussian sums over a key-sorted packed slab
+    (rasterize_pallas.py:881).
+
+    slab (> ru, L) int32: rows 0..ru-1 hold bf16 pairs, row `ru` the
+    ascending keys (Gaussian ids). Returns (2 ru + 2, n) float32: the
+    decoded field sums per id, then sum |field 0| and sum |field 1|. Keys
+    outside [0, n) are never summed; an id without lanes gives exact
+    zeros. The Pallas function's coarse block bounds, chunk padding and
+    n_pad have no counterpart: each thread finds its own range in the key
+    row.
+    """
+    if not _route(slab, "reduce_segments_bykey"):
+        return reduce_segments_bykey_plain(slab, ru, n)
+    if not 1 <= ru <= 7:
+        raise ValueError("reduce_segments_bykey: 1 <= ru <= 7")
+    if (slab.dtype != torch.int32 or slab.ndim != 2 or slab.shape[0] <= ru
+            or slab.stride(1) != 1):
+        raise ValueError("reduce_segments_bykey: slab must be a "
+                         "row-contiguous (> ru, L) int32 tensor")
+    length = slab.shape[1]
+    if length >= 2**31 or n >= 2**31:
+        raise ValueError("reduce_segments_bykey: sizes must fit int32")
+    out = torch.empty((2 * ru + 2, n), dtype=torch.float32,
+                      device=slab.device)
+    _check_rc(_entry("reduce_segments_bykey")(
+        slab.data_ptr(), slab.stride(0), length, ru, n, out.data_ptr(),
+        out.stride(0), _stream()), "reduce_segments_bykey")
+    LAUNCHES["reduce_segments_bykey"] += 1
+    return out

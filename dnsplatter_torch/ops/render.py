@@ -3,8 +3,8 @@ normals and depth (counterpart of dnsplatter_tpu/ops/render.py).
 
 Outputs match the reference's `get_outputs` dict: rgb, depth (expected),
 normal (camera frame), surface_normal (depth-gradient), accumulation,
-background. The training-only sinks (`xys_sink`, `absgrad_sink`) come with
-the training slice.
+background. Differentiable in the Gaussian parameters; `xys_sink` and
+`absgrad_sink` expose the screen-space gradients that densification reads.
 """
 
 from __future__ import annotations
@@ -54,12 +54,16 @@ def render(
     sh_degree_to_use: int = 3,
     background: Optional[torch.Tensor] = None,
     rasterize_mode: str = "classic",
+    xys_sink: Optional[torch.Tensor] = None,
+    absgrad_sink: Optional[torch.Tensor] = None,
     near_plane: float = 0.01,
     far_plane: float = 1e10,
     crop_box: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[RenderOutputs, RenderInfo]:
     """Render one camera. `alive` (C,) {0,1} masks capacity padding;
-    `crop_box` (lo, hi) keeps only Gaussians inside a world AABB."""
+    `crop_box` (lo, hi) keeps only Gaussians inside a world AABB.
+    `xys_sink` / `absgrad_sink`: optional (C, 2) zeros whose gradients are
+    the screen-space mean gradients / their absolute values."""
     dev = params.means.device
     if background is None:
         background = torch.zeros(3, device=dev)
@@ -91,17 +95,26 @@ def render(
     n_cam = world_to_camera_normals(n_world, camera.c2w)
     feats = torch.cat([colors, n_cam, proj.depths[:, None]], dim=-1)
 
-    img, alpha = rasterize(proj.means2d, proj.conics, proj.depths, opac,
-                           feats, valid, raster_cfg, radii=proj.radii_xy)
+    means2d = proj.means2d
+    if xys_sink is not None:
+        means2d = means2d + xys_sink
+    img, alpha = rasterize(means2d, proj.conics, proj.depths, opac, feats,
+                           valid, raster_cfg, absgrad_sink=absgrad_sink,
+                           radii=proj.radii_xy)
 
     rgb = img[..., 0:3] + (1.0 - alpha) * background[None, None, :]
-    rgb = torch.clamp(rgb, 0.0, 1.0)
+    # clip as min(max(x, 0), 1): at a tie the gradient halves, as the JAX
+    # package's jnp.clip does (torch.clamp would pass it whole)
+    rgb = torch.minimum(torch.maximum(rgb, rgb.new_zeros(())),
+                        rgb.new_ones(()))
     depth_acc = img[..., 6:7]
     # Expected depth: accumulated / alpha where visible, the (detached)
     # maximum elsewhere (splatfacto semantics).
     max_depth = depth_acc.max().detach()
-    depth = torch.where(alpha > 0.0,
-                        depth_acc / torch.clamp_min(alpha, 1e-10), max_depth)
+    depth = torch.where(
+        alpha > 0.0,
+        depth_acc / torch.maximum(alpha, alpha.new_full((), 1e-10)),
+        max_depth)
     surface_normal = surface_normal_output(depth.detach(), camera.fx,
                                            camera.fy, camera.cx, camera.cy)
     outputs = RenderOutputs(rgb=rgb, depth=depth, normal=img[..., 3:6],

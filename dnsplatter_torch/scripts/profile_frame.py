@@ -1,28 +1,36 @@
-"""Where one served frame's time goes, on the GPU.
+"""Where one served frame's, or one training step's, time goes, on the GPU.
 
-    python -m dnsplatter_torch.scripts.profile_frame [--n 1000000]
+    python -m dnsplatter_torch.scripts.profile_frame [--n 1000000] [--train]
 
 Builds chip_smoke.py's synthetic scene (make_gt_gaussians with real
-degree-3 SH, ring cameras at 1024x576, focal 700), renders a few warm-up
-frames, then profiles `get_outputs` over `--frames` frames with
-torch.profiler (CPU + CUDA activity). Prints one JSON line: host ms per
-frame, device-busy ms per frame (the sum of kernel times), the device's
-idle share, and the kernels and operators that take the most device time.
+degree-3 SH, ring cameras at 1024x576, focal 700), runs a few warm-up
+frames, then profiles `--frames` frames with torch.profiler (CPU + CUDA
+activity): `get_outputs` on the scene itself, or with `--train` steps of
+`Trainer.train` at the Trainer's defaults on seed points perturbed from
+the scene, against targets the port rendered (chip_smoke.py's training
+scene). Prints one JSON line: host ms per frame, device-busy ms per frame
+(the sum of kernel times), the device's idle share, and the kernels and
+operators that take the most device time; with `--train` also the device
+span of each stage of the step (from its first kernel's start to its
+last kernel's end, inclusive of the stages nested in it) and its host time.
 Runs only on the card.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
+import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from dnsplatter_torch.data.synthetic import make_gt_gaussians, ring_cameras
 from dnsplatter_torch.eval.evaluator import eval_raster_config
@@ -37,6 +45,59 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+# Stages of a training step: (module path, attribute, label). Each is
+# wrapped in a profiler range, so its device time is that of the kernels
+# launched inside it.
+TRAIN_STAGES = (
+    ("dnsplatter_torch.train.trainer", "get_outputs", "1 get_outputs"),
+    ("dnsplatter_torch.ops.rasterize", "_raster_fwd", "1.1 raster_fwd"),
+    ("dnsplatter_torch.ops.rasterize", "bin_gaussians", "1.1.1 bin_gaussians"),
+    ("dnsplatter_torch.ops.rasterize_cuda", "forward_tiles",
+     "1.1.2 forward_tiles"),
+    ("dnsplatter_torch.train.trainer", "compute_loss", "2 compute_loss"),
+    ("torch.autograd", "grad", "3 autograd.grad"),
+    ("dnsplatter_torch.ops.rasterize", "_raster_bwd", "3.1 raster_bwd"),
+    ("dnsplatter_torch.ops.rasterize_cuda", "backward_tiles",
+     "3.1.1 backward_tiles"),
+    ("dnsplatter_torch.ops.rasterize", "live_pair_slots",
+     "3.1.2 live_pair_slots"),
+    ("dnsplatter_torch.ops.rasterize_cuda", "reduce_segments_bykey",
+     "3.1.3 reduce_segments_bykey"),
+    ("dnsplatter_torch.train.trainer", "adam_step", "4 adam_step"),
+    ("dnsplatter_torch.train.trainer", "update_stats", "5 update_stats"),
+)
+
+
+def _ranged(fn, label):
+    def wrapped(*a, **kw):
+        with record_function(label):
+            return fn(*a, **kw)
+    return wrapped
+
+
+def _trainer(args, dev, gt, alive, cam_list, cfg):
+    """chip_smoke.py's training scene: targets rendered by the port, seed
+    points perturbed from the ground truth, the Trainer's defaults."""
+    from dnsplatter_torch.data.synthetic import SyntheticScene, render_batches
+    from dnsplatter_torch.ops.sh import sh_to_rgb
+    from dnsplatter_torch.train.trainer import TrainConfig, Trainer
+
+    data = SyntheticScene(
+        cameras=cam_list, gt_params=gt, gt_alive=alive,
+        batches=render_batches(gt, alive, cam_list, lambda cam: cfg,
+                               sh_degree=3))
+    rng = np.random.default_rng(args.seed + 100)
+    pts = (gt.means.cpu().numpy()
+           + rng.normal(0.0, 0.002, (args.n, 3)).astype(np.float32))
+    cols = np.clip(sh_to_rgb(gt.features_dc).cpu().numpy(), 0.0, 1.0)
+    model_cfg = ModelConfig(use_depth_loss=True, depth_lambda=0.2,
+                            use_normal_loss=True, sh_degree=3,
+                            sh_degree_interval=1)
+    with contextlib.redirect_stdout(sys.stderr):
+        return Trainer(data, (pts, cols), model_cfg=model_cfg,
+                       train_cfg=TrainConfig(steps_per_eval_image=0))
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--n", type=int, default=1_000_000)
@@ -45,6 +106,8 @@ def main(argv=None) -> None:
     p.add_argument("--frames", type=int, default=5)
     p.add_argument("--top", type=int, default=15)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--train", action="store_true",
+                   help="profile training steps instead of served frames")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_frame needs a CUDA device")
@@ -59,17 +122,32 @@ def main(argv=None) -> None:
     rest = rng.normal(0.0, 0.1, tuple(params.features_rest.shape))
     params = dataclasses.replace(params, features_rest=torch.as_tensor(
         rest.astype(np.float32), device=dev))
-    cam = ring_cameras(4, width=1024, img_height=576, focal=700.0,
-                       device=dev)[0]
+    cams = ring_cameras(4, width=1024, img_height=576, focal=700.0,
+                        device=dev)
+    cam = cams[0]
     cfg = eval_raster_config(1024, 576, capacity)
     bg = torch.zeros(3, device=dev)
+    stack = contextlib.ExitStack()
+    if args.train:
+        import importlib
 
-    def frame():
-        get_outputs(params, alive, cam, ModelConfig(), cfg, sh_degree=3,
-                    background=bg)
+        trainer = _trainer(args, dev, params, alive, cams, cfg)
+        capacity = trainer.train_cfg.pair_capacity
+        for mod, attr, label in TRAIN_STAGES:
+            m = importlib.import_module(mod)
+            stack.enter_context(mock.patch.object(
+                m, attr, _ranged(getattr(m, attr), label)))
 
-    with torch.no_grad():
-        for _ in range(3):
+        def frame():
+            with contextlib.redirect_stdout(sys.stderr):
+                trainer.train(1, log_every=1 << 30)
+    else:
+        def frame():
+            get_outputs(params, alive, cam, ModelConfig(), cfg, sh_degree=3,
+                        background=bg)
+
+    with stack, torch.set_grad_enabled(args.train):
+        for _ in range(4 if args.train else 3):
             frame()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -85,8 +163,14 @@ def main(argv=None) -> None:
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / args.frames
 
+    labels = {label for _, _, label in TRAIN_STAGES}
     stats = [e for e in prof.key_averages() if _device_us(e) > 0]
-    kernels = [e for e in stats if e.device_type == DeviceType.CUDA]
+    # a stage's range is mirrored on the device's timeline as an
+    # annotation, from its first kernel's start to its last kernel's end
+    spans = [e for e in stats
+             if e.device_type == DeviceType.CUDA and e.key in labels]
+    kernels = [e for e in stats
+               if e.device_type == DeviceType.CUDA and e.key not in labels]
     ops = [e for e in stats if e.device_type == DeviceType.CPU]
     busy_ms = sum(_device_us(e) for e in kernels) / 1e3 / args.frames
 
@@ -96,7 +180,14 @@ def main(argv=None) -> None:
                  "ms_per_frame": _device_us(e) / 1e3 / args.frames,
                  "calls_per_frame": e.count / args.frames} for e in evts]
 
+    stages = {e.key: {"device_span_ms_per_frame":
+                      _device_us(e) / 1e3 / args.frames} for e in spans}
+    for e in prof.key_averages():
+        if e.key in stages and e.device_type == DeviceType.CPU:
+            stages[e.key]["host_ms_per_frame"] = (
+                float(e.cpu_time_total) / 1e3 / args.frames)
     print(json.dumps({
+        "mode": "train" if args.train else "serve", "stages": stages,
         "n_gaussians": args.n, "pair_capacity": capacity,
         "frames": args.frames, "host_ms_per_frame": plain_wall_ms,
         "host_ms_per_frame_profiled": wall_ms,

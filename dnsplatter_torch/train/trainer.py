@@ -1,33 +1,567 @@
-"""Checkpoint loading (counterpart of `load_checkpoint_arrays` in
-dnsplatter_tpu/train/trainer.py). The Trainer comes with the training
-slice.
+"""Training loop: the step, the refinement cadence and checkpoints
+(counterpart of dnsplatter_tpu/train/trainer.py).
 
-The JAX package writes checkpoints as npz files holding `params.<field>`
-for the seven Gaussian fields, `alive` and `step` (plus optimizer state,
-which serving ignores). Reading them with numpy is how a scene trained by
-the JAX package is served by the port.
+The loop serves full images in sequence, takes one optimizer step per image
+with the per-group Adam of `train/optim.py`, follows the SH-degree
+schedule, and runs the refinement events (densify, cull, opacity reset,
+capacity growth) between steps, where `step` is a Python int. The port
+runs eagerly, so there is no compiled step per (shape, SH degree): the
+step is a plain function, `train_step`.
+
+Checkpoints are the JAX package's npz files, key for key (`params.*`,
+`alive`, `step`, `adam.{mu,nu,count,accum}.*`, `cam_opt.*`, `cam_adj`), so
+a run saved by either package resumes in the other.
+
+Not ported yet (each raises NotImplementedError naming its ROADMAP item):
+the camera optimizer, `steps_per_dispatch > 1`, `devices > 1`,
+`distributed` / `dp > 1`, the viewer and the TensorBoard writer.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import time
 from pathlib import Path
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from dnsplatter_torch import resolve_device
+from dnsplatter_torch.models.dn_model import (
+    ModelConfig,
+    apply_binary_opacities,
+    compute_loss,
+    get_outputs,
+    sh_degree_to_use,
+)
 from dnsplatter_torch.models.gaussians import (
     FIELDS,
     GaussianParams,
+    grow_capacity,
+    init_from_points,
+    init_random,
     params_from_numpy,
+    params_to_numpy,
 )
+from dnsplatter_torch.ops.camera import Camera
+from dnsplatter_torch.ops.projection import project_gaussians
+from dnsplatter_torch.ops.rasterize import RasterizeConfig
+from dnsplatter_torch.train.optim import (
+    AdamState,
+    OptimConfig,
+    adam_from_numpy,
+    adam_step,
+    adam_to_numpy,
+    init_adam,
+    pad_adam,
+)
+from dnsplatter_torch.train.strategy import (
+    RefineStats,
+    cull_only,
+    densify_and_cull,
+    init_stats,
+    reset_opacity,
+    update_stats,
+)
+from dnsplatter_torch.train.writers import JsonlWriter
+
+CAM_OPT_FIELDS = ("adj", "accum", "mu", "nu", "count")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """The JAX package's fields and defaults. `chunk`, `tile_block` and
+    `backend` are carried into the RasterizeConfig and not read by the
+    kernels; `cache_batches_on_device` keeps each frame's batch on the
+    card after its first upload."""
+
+    max_iterations: int = 30000
+    steps_per_eval_image: int = 500
+    steps_per_save: int = 1_000_000  # end-of-run only, like the reference
+    seed: int = 42
+    pair_capacity: int = 1 << 21
+    tile_size: int = 16
+    chunk: int = 128
+    tile_block: int = 32
+    backend: str = "auto"
+    # "depthq": tile + quantized depth in one uint32 key and no N-scale
+    # depth pre-sort; differs from the exact schemes only by reorders of
+    # depths closer than the quantization step. "auto" for the exact
+    # packed schemes.
+    sort_scheme: str = "depthq"
+    # < 0 keeps the RasterizeConfig default (0.375)
+    compact_frac: float = -1.0
+    steps_per_dispatch: int = 1
+    devices: int = 0
+    distributed: bool = False
+    dp: int = 1
+    parallel_strategy: str = "gspmd"
+    # Size pair_capacity from the data at startup: the largest raw
+    # (gaussian, tile) pair count over sample frames times the margin,
+    # rounded up to the chunk. Every sort, gather and slab in the
+    # rasterizer scales with the capacity.
+    auto_pair_capacity: bool = True
+    auto_capacity_margin: float = 3.0
+    # Gaussian-state capacity (0: capacity_margin x the seed count, rounded
+    # to 4096). When a densify event fills >= 95% of it, the state is
+    # re-padded to capacity_growth x; <= 1 disables growth (overflowing
+    # children are then dropped).
+    capacity: int = 0
+    capacity_margin: float = 1.25
+    capacity_growth: float = 1.5
+    viewer: bool = False
+    viewer_port: int = 7007
+    tensorboard: bool = False
+    cache_batches_on_device: bool = True
+
+
+def _check_ported(model_cfg: ModelConfig, tc: TrainConfig) -> None:
+    if model_cfg.camera_optimizer_mode != "off":
+        raise NotImplementedError(
+            "camera_optimizer_mode != 'off' (models/camera_opt.py) is not "
+            "ported yet: ROADMAP.md queue A item 5")
+    if tc.steps_per_dispatch > 1:
+        raise NotImplementedError(
+            "steps_per_dispatch > 1 is not ported yet: ROADMAP.md queue A "
+            "item 6")
+    if (tc.devices and tc.devices > 1) or tc.distributed or tc.dp > 1:
+        raise NotImplementedError(
+            "multi-device training (devices > 1, distributed, dp > 1) is "
+            "not ported yet: ROADMAP.md queue A item 14")
+    if tc.viewer:
+        raise NotImplementedError(
+            "the viewer is not ported yet: ROADMAP.md queue A item 15")
+    if tc.tensorboard:
+        raise NotImplementedError(
+            "the TensorBoard writer is not ported yet: ROADMAP.md queue A "
+            "item 8")
+
+
+def loss_and_grads(
+    model_cfg: ModelConfig,
+    raster_cfg: RasterizeConfig,
+    sh_degree: int,
+    params: GaussianParams,
+    alive: torch.Tensor,
+    camera: Camera,
+    batch: Dict[str, torch.Tensor],
+    step: int,
+    background: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    pearson_corners=None,
+):
+    """The loss of one frame and its gradients: (loss, loss_dict, grads as
+    GaussianParams, absgrad (C, 2), RenderInfo)."""
+    leaves = GaussianParams(**{
+        f: getattr(params, f).detach().requires_grad_(True) for f in FIELDS})
+    sink = torch.zeros_like(params.means[:, :2]).requires_grad_(True)
+    outputs, info = get_outputs(
+        leaves, alive, camera, model_cfg, raster_cfg, sh_degree=sh_degree,
+        background=background, absgrad_sink=sink, training=True,
+        generator=generator)
+    loss, loss_dict = compute_loss(outputs, batch, leaves, alive, camera,
+                                   model_cfg, step,
+                                   pearson_corners=pearson_corners,
+                                   generator=generator)
+    inputs = [getattr(leaves, f) for f in FIELDS] + [sink]
+    grads = torch.autograd.grad(loss, inputs, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g
+             for g, x in zip(grads, inputs)]
+    gparams = GaussianParams(**dict(zip(FIELDS, grads[:-1])))
+    loss_dict = {k: v.detach() for k, v in loss_dict.items()}
+    return loss.detach(), loss_dict, gparams, grads[-1], info
+
+
+def train_step(
+    model_cfg: ModelConfig,
+    optim_cfg: OptimConfig,
+    raster_cfg: RasterizeConfig,
+    sh_degree: int,
+    params: GaussianParams,
+    alive: torch.Tensor,
+    adam: AdamState,
+    stats: RefineStats,
+    camera: Camera,
+    batch: Dict[str, torch.Tensor],
+    step: int,
+    background: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    pearson_corners=None,
+) -> Tuple[GaussianParams, AdamState, RefineStats, torch.Tensor,
+           Dict[str, torch.Tensor]]:
+    """One optimizer step on one frame: binary opacities, loss and
+    gradients, dead slots frozen by `alive`, the Adam step, the
+    densification statistics. `adam` is updated in place. Without a
+    `background`, a random one is drawn from `generator` (see
+    `get_outputs`); `pearson_corners` feed depth_loss_type "pearson"."""
+    step = int(step)
+    params = apply_binary_opacities(params, alive, model_cfg, step)
+    loss, loss_dict, gparams, gabs, info = loss_and_grads(
+        model_cfg, raster_cfg, sh_degree, params, alive, camera, batch, step,
+        background=background, generator=generator,
+        pearson_corners=pearson_corners)
+    # Freeze dead capacity-padding slots.
+    gparams = GaussianParams(**{
+        f: getattr(gparams, f) * alive.reshape(
+            (-1,) + (1,) * (getattr(gparams, f).ndim - 1)) for f in FIELDS})
+    new_params, adam = adam_step(optim_cfg, params, gparams, adam, step)
+    max_size = float(max(raster_cfg.width, raster_cfg.height))
+    stats = update_stats(stats, gabs, info.radii, info.valid, max_size)
+    return new_params, adam, stats, loss, loss_dict
+
+
+class Trainer:
+    """Single-device trainer over a scene source: `len(data)` frames and
+    `data.get(i) -> (Camera, dict of numpy arrays or tensors)`, served in
+    sequence. `device=None` trains on the card."""
+
+    def __init__(
+        self,
+        data,
+        seed_points: Optional[Tuple[np.ndarray, ...]] = None,
+        model_cfg: ModelConfig = ModelConfig(),
+        optim_cfg: OptimConfig = OptimConfig(),
+        train_cfg: TrainConfig = TrainConfig(),
+        out_dir: Optional[Path] = None,
+        device=None,
+    ):
+        _check_ported(model_cfg, train_cfg)
+        self.device = resolve_device(device)
+        self.data = data
+        self.model_cfg = model_cfg
+        self.optim_cfg = optim_cfg
+        self.train_cfg = train_cfg
+        self.out_dir = Path(out_dir) if out_dir else None
+        # Host draws (init, background colours, loss boxes) and device
+        # draws (split children), both from the seed.
+        self.rng = np.random.default_rng(train_cfg.seed)
+        self.generator = torch.Generator(device="cpu")
+        self.generator.manual_seed(train_cfg.seed)
+        self.device_generator = torch.Generator(device=self.device)
+        self.device_generator.manual_seed(train_cfg.seed)
+        self._batch_cache: Dict[int, tuple] = {}
+        self._ds_cache: Dict[tuple, tuple] = {}
+
+        if seed_points is not None:
+            pts = seed_points[0]
+            cols = seed_points[1] if len(seed_points) > 1 else None
+            nrms = seed_points[2] if len(seed_points) > 2 else None
+            cap = train_cfg.capacity
+            if not cap:
+                n_seed = int(pts.shape[0])
+                cap = max(4096, int(np.ceil(
+                    train_cfg.capacity_margin * n_seed / 4096) * 4096))
+            self.params, self.alive, _ = init_from_points(
+                self.rng, pts, cols, nrms, sh_degree=model_cfg.sh_degree,
+                capacity=cap, device=self.device)
+        else:
+            self.params, self.alive, _ = init_random(
+                self.rng, num_points=model_cfg.num_random,
+                extent=model_cfg.random_scale / 2.0,
+                sh_degree=model_cfg.sh_degree, device=self.device)
+        self.adam = init_adam(self.params)
+        self.stats = init_stats(self.params.capacity, self.device)
+        self.audited_pairs = 0  # largest raw pair count the audit saw
+        if train_cfg.auto_pair_capacity:
+            cap = self._audit_pair_capacity()
+            if cap is not None:
+                self.train_cfg = dataclasses.replace(train_cfg,
+                                                     pair_capacity=cap)
+                print(f"auto pair capacity: {cap}", flush=True)
+        self.step = 0
+        self._history: list = []
+        # The camera optimizer is not ported; its state is carried as the
+        # zero state so checkpoints keep the JAX package's keys.
+        n_cams = max(len(data), 1)
+        self.cam_opt = {f: np.zeros((n_cams, 6), np.float32)
+                        for f in CAM_OPT_FIELDS[:-1]}
+        self.cam_opt["count"] = np.zeros((), np.int32)
+        self._writers = []
+        if self.out_dir:
+            self._writers.append(JsonlWriter(self.out_dir))
+
+    # -- configuration ----------------------------------------------------
+
+    @torch.no_grad()
+    def _audit_pair_capacity(self) -> Optional[int]:
+        """The largest raw (gaussian, tile) pair count over up to 8 sample
+        frames times the margin, rounded up to the chunk (None if no frame
+        shows a pair)."""
+        tc = self.train_cfg
+        n = len(self.data)
+        if n == 0:
+            return None
+        idxs = sorted({(i * n) // min(8, n) for i in range(min(8, n))})
+        p = self.params
+        opac = torch.sigmoid(p.opacities)
+        scales = torch.exp(p.scales)
+        ts = float(tc.tile_size)
+        worst = 0
+        for i in idxs:
+            cam, _ = self.data.get(i)
+            proj = project_gaussians(
+                p.means, p.quats, scales, cam.viewmat(), cam.fx, cam.fy,
+                cam.cx, cam.cy, cam.width, cam.height, opacities=opac)
+            r = proj.radii_xy
+            m = proj.means2d
+            tx = (torch.floor((m[:, 0] + r[:, 0]) / ts)
+                  - torch.floor((m[:, 0] - r[:, 0]) / ts) + 1)
+            ty = (torch.floor((m[:, 1] + r[:, 1]) / ts)
+                  - torch.floor((m[:, 1] - r[:, 1]) / ts) + 1)
+            ok = proj.valid & (self.alive > 0.5)
+            cnt = torch.where(ok, tx * ty, 0.0).double().sum()
+            worst = max(worst, int(cnt))
+        self.audited_pairs = worst
+        if worst <= 0:
+            return None
+        cap = max(int(worst * tc.auto_capacity_margin), 1 << 16)
+        return -(-cap // tc.chunk) * tc.chunk
+
+    def _raster_cfg(self, camera: Camera) -> RasterizeConfig:
+        tc = self.train_cfg
+        kw = {}
+        if tc.compact_frac >= 0.0:
+            kw["compact_frac"] = tc.compact_frac
+        return RasterizeConfig(
+            width=camera.width,
+            height=camera.height,
+            tile_size=tc.tile_size,
+            chunk=tc.chunk,
+            tile_block=tc.tile_block,
+            pair_capacity=-(-tc.pair_capacity // tc.chunk) * tc.chunk,
+            backend="cuda" if tc.backend == "auto" else tc.backend,
+            sort_scheme=tc.sort_scheme,
+            **kw,
+        )
+
+    # -- refinement -------------------------------------------------------
+
+    def _refinement(self, camera: Camera) -> None:
+        """Which refinement action fires after this step."""
+        cfg = self.model_cfg
+        step = self.step
+        if step <= cfg.warmup_length or step % cfg.refine_every != 0:
+            return
+        reset_interval = cfg.reset_alpha_every * cfg.refine_every
+        num_train = len(self.data)
+        do_densify = (
+            step < cfg.stop_split_at
+            and step % reset_interval > num_train + cfg.refine_every)
+        max_size = float(max(camera.width, camera.height))
+        if do_densify:
+            self.params, self.alive, self.adam, self.stats = densify_and_cull(
+                cfg, self.params, self.alive, self.adam, self.stats, step,
+                max_size, generator=self.device_generator)
+            self._maybe_grow_capacity()
+        elif (step >= cfg.stop_split_at
+              and cfg.continue_cull_post_densification):
+            self.params, self.alive, self.adam, self.stats = cull_only(
+                cfg, self.params, self.alive, self.adam, self.stats, step)
+        if (step < cfg.stop_split_at
+                and step % reset_interval == cfg.refine_every):
+            self.params, self.adam = reset_opacity(cfg, self.params,
+                                                   self.adam)
+
+    def _maybe_grow_capacity(self) -> bool:
+        """Grow the Gaussian-state capacity after a densify event that
+        comes within 5% of the ceiling. It runs right after
+        `densify_and_cull`, where the statistics were just zeroed, so
+        starting them anew at the new capacity is exact; new Adam slots
+        have no history. Unlike the JAX package, the pair capacity is then
+        audited again: a state that has room for more Gaussians would
+        otherwise outgrow a pair list sized for the seed, and under depthq
+        the overflow silently drops Gaussians in array order. Returns
+        whether it grew."""
+        tc = self.train_cfg
+        if tc.capacity_growth <= 1.0:
+            return False
+        cap = self.params.capacity
+        n_alive = int(self.alive.sum())
+        if n_alive < int(0.95 * cap):
+            return False
+        new_cap = int(np.ceil(cap * tc.capacity_growth / 4096) * 4096)
+        self.params, self.alive = grow_capacity(self.params, self.alive,
+                                                new_cap)
+        self.adam = pad_adam(self.adam, new_cap - cap)
+        self.stats = init_stats(new_cap, self.device)
+        print(f"capacity grown: {cap} -> {new_cap} ({n_alive} alive)",
+              flush=True)
+        self._reaudit("after growth")
+        return True
+
+    def _reaudit(self, why: str) -> None:
+        if not self.train_cfg.auto_pair_capacity:
+            return
+        cap = self._audit_pair_capacity()
+        if cap is not None and cap != self.train_cfg.pair_capacity:
+            self.train_cfg = dataclasses.replace(self.train_cfg,
+                                                 pair_capacity=cap)
+            print(f"auto pair capacity ({why}): {cap}", flush=True)
+
+    # -- evaluation -------------------------------------------------------
+
+    @torch.no_grad()
+    def eval_image(self, index: int = 0, eval_data=None) -> Dict[str, float]:
+        """Render one eval frame and compute quick metrics."""
+        from dnsplatter_torch.eval import metrics as M
+
+        data = eval_data or self.data
+        cam, batch = data.get(index % len(data))
+        sh = sh_degree_to_use(self.step, self.model_cfg)
+        out, _ = get_outputs(
+            self.params, self.alive, cam, self.model_cfg,
+            self._raster_cfg(cam), sh_degree=sh, training=False,
+            background=torch.zeros(3, device=self.device))
+        row = {f"rgb_{k}": v for k, v in M.rgb_metrics(
+            out["rgb"], self._tensor(batch["image"])).items()}
+        if "sensor_depth" in batch:
+            row.update({f"depth_{k}": v for k, v in M.depth_metrics(
+                out["depth"], self._tensor(batch["sensor_depth"])).items()})
+        row["gaussian_count"] = int(self.alive.sum())
+        return row
+
+    # -- the loop ---------------------------------------------------------
+
+    def _tensor(self, v) -> torch.Tensor:
+        return torch.as_tensor(v, dtype=torch.float32, device=self.device)
+
+    def _device_batch(self, idx: int, batch) -> Dict[str, torch.Tensor]:
+        """Frame `idx`'s batch on the device, cached; dropped when the
+        served batch's keys or shapes change (the downscale schedule)."""
+        if not self.train_cfg.cache_batches_on_device:
+            return {k: self._tensor(v) for k, v in batch.items()}
+        sig = tuple(sorted((k, tuple(np.shape(v))) for k, v in batch.items()))
+        hit = self._batch_cache.get(idx)
+        if hit is not None and hit[0] == sig:
+            return hit[1]
+        dev = {k: self._tensor(v) for k, v in batch.items()}
+        self._batch_cache[idx] = (sig, dev)
+        return dev
+
+    def train_one(self, cam: Camera, batch, cam_i: int) -> torch.Tensor:
+        """One step on (cam, batch); returns the loss (a device scalar)."""
+        sh = sh_degree_to_use(self.step, self.model_cfg)
+        (self.params, self.adam, self.stats, loss, self.last_loss_dict
+         ) = train_step(
+            self.model_cfg, self.optim_cfg, self._raster_cfg(cam), sh,
+            self.params, self.alive, self.adam, self.stats, cam,
+            self._device_batch(cam_i, batch), self.step,
+            generator=self.generator)
+        self.step += 1
+        return loss
+
+    def train(self, num_steps: Optional[int] = None, log_every: int = 100,
+              eval_data=None):
+        total = num_steps or self.train_cfg.max_iterations
+        n = len(self.data)
+        t0 = time.time()
+        target = self.step + total
+        while self.step < target:
+            cam_i = self.step % n
+            cam, batch = self.data.get(cam_i)
+            d = self._downscale_factor()
+            if d > 1:
+                cam, batch = self._downscaled(cam_i, cam, batch, d)
+                cam_i = (cam_i, d)
+            loss = self.train_one(cam, batch, cam_i)
+            self._refinement(cam)
+            if self.step % log_every == 0 or self.step == target:
+                loss_v = float(loss)
+                n_alive = int(self.alive.sum())
+                dt = time.time() - t0
+                row = dict(step=self.step, loss=loss_v, n_gaussians=n_alive,
+                           wall_s=round(dt, 2))
+                self._history.append(row)
+                for wtr in self._writers:
+                    wtr.write_scalars(self.step, row)
+                print(f"step {self.step:6d}  loss {loss_v:.4f}  "
+                      f"gaussians {n_alive}  {dt:.1f}s", flush=True)
+            spe = self.train_cfg.steps_per_eval_image
+            if spe and self.step % spe == 0:
+                m = self.eval_image(self.step // spe, eval_data)
+                print(f"  eval @ {self.step}: psnr {m['rgb_psnr']:.2f} "
+                      f"ssim {m['rgb_ssim']:.3f} "
+                      f"gaussians {m['gaussian_count']}", flush=True)
+                self._history.append(dict(step=self.step, **m))
+                for wtr in self._writers:
+                    wtr.write_scalars(self.step, m)
+            sps = self.train_cfg.steps_per_save
+            if self.out_dir and sps and self.step % sps == 0:
+                self.save_checkpoint()
+        if self.out_dir:
+            self.save_checkpoint()
+        return self._history
+
+    def _downscale_factor(self) -> int:
+        """Progressive resolution (num_downscales / resolution_schedule;
+        the DN-Splatter default is num_downscales = 0)."""
+        cfg = self.model_cfg
+        if cfg.num_downscales <= 0:
+            return 1
+        d = max(0, cfg.num_downscales - self.step // cfg.resolution_schedule)
+        return 2 ** d
+
+    def _downscaled(self, idx: int, cam: Camera, batch, d: int):
+        key = (idx, d)
+        if key in self._ds_cache:
+            return self._ds_cache[key]
+        from dnsplatter_torch.data.io import resize_image
+
+        cam2 = cam.rescaled(1.0 / d)
+        batch2 = {}
+        for k, v in batch.items():
+            v = np.asarray(v.cpu() if torch.is_tensor(v) else v)
+            batch2[k] = resize_image(v if v.ndim == 3 else v[..., None],
+                                     cam2.height, cam2.width,
+                                     nearest=(k != "image"))
+        self._ds_cache[key] = (cam2, batch2)
+        return cam2, batch2
+
+    # -- checkpoints (npz: the state is a flat dict of arrays) ------------
+
+    def save_checkpoint(self, path: Optional[Path] = None) -> Path:
+        path = Path(path) if path else (
+            self.out_dir / f"ckpt_{self.step:06d}.npz")
+        path.parent.mkdir(parents=True, exist_ok=True)
+        flat = {f"params.{f}": a
+                for f, a in params_to_numpy(self.params).items()}
+        flat["alive"] = self.alive.cpu().numpy()
+        flat["step"] = np.asarray(self.step)
+        for f in CAM_OPT_FIELDS:
+            flat[f"cam_opt.{f}"] = self.cam_opt[f]
+        flat["cam_adj"] = self.cam_opt["adj"]
+        flat.update(adam_to_numpy(self.adam))
+        np.savez_compressed(path, **flat)
+        meta = dataclasses.asdict(self.model_cfg)
+        (path.parent / "config.json").write_text(json.dumps(meta, indent=2))
+        return path
+
+    def load_checkpoint(self, path: Path) -> None:
+        with np.load(path) as z:
+            self.params = params_from_numpy(
+                {f: z[f"params.{f}"] for f in FIELDS}, device=self.device)
+            self.alive = self._tensor(z["alive"])
+            self.step = int(z["step"])
+            self.adam = adam_from_numpy(
+                {k: z[k] for k in z.files if k.startswith("adam.")},
+                device=self.device)
+            shape = self.cam_opt["adj"].shape
+            if "cam_opt.adj" in z.files and z["cam_opt.adj"].shape == shape:
+                self.cam_opt = {f: np.asarray(z[f"cam_opt.{f}"])
+                                for f in CAM_OPT_FIELDS}
+        self.stats = init_stats(self.params.capacity, self.device)
+        # A densified checkpoint can need a larger pair capacity than the
+        # seed audit chose.
+        self._reaudit("resume")
 
 
 def load_checkpoint_arrays(path: Path, device=None
                            ) -> Tuple[GaussianParams, torch.Tensor, int]:
-    """(params, alive, step) from a JAX-format npz, on `device` (None:
-    the card)."""
+    """(params, alive, step) from a checkpoint of either package, on
+    `device` (None: the card): the loader for offline tools (evaluation,
+    export)."""
     dev = resolve_device(device)
     with np.load(path) as z:
         params = params_from_numpy({f: z[f"params.{f}"] for f in FIELDS},

@@ -152,8 +152,160 @@ def test_unported_schemes_raise():
     m2d, depths, radii, valid = _scene(n=50)
     args = (torch.as_tensor(m2d), torch.as_tensor(depths),
             torch.as_tensor(radii), torch.as_tensor(valid))
-    for kw in ({"sort_scheme": "depthq"}, {"sort_scheme": "tilekey"},
-               {"exact_cull": True}):
+    for kw in ({"sort_scheme": "tilekey"}, {"exact_cull": True},
+               {"sort_scheme": "depthq", "exact_cull": True}):
         cfg = trz.RasterizeConfig(width=128, height=96, **kw)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             trz.bin_gaussians(cfg, *args)
+
+
+def _park_deepest_off_screen(m2d, depths, radii, k=0, depth=50.0):
+    """Gaussian `k` becomes the deepest valid one and covers no tile. Above
+    24 depth bits the JAX package files a Gaussian at exactly the largest
+    depth into the next tile (float32 rounds its clamp up to 2^qbits;
+    ROADMAP.md section C); the port does not, so layouts are compared with
+    that depth held by a Gaussian without pairs."""
+    m2d, depths, radii = m2d.copy(), depths.copy(), radii.copy()
+    m2d[k] = (-1000.0, -1000.0)
+    radii[k] = 1.0
+    depths[k] = depth
+    return m2d, depths, radii
+
+
+def _depthq_cfg(**kw):
+    return jrz.RasterizeConfig(width=128, height=96, tile_size=16, chunk=16,
+                               tile_block=4, pair_capacity=1 << 13,
+                               backend="pallas", sort_scheme="depthq", **kw)
+
+
+@pytest.mark.parametrize("aniso,seed", [(False, 4), (True, 5)])
+def test_bin_gaussians_depthq_bit_equal_without_ties(aniso, seed):
+    """depthq: no depth pre-sort, key tile * 2^qb + quantized depth, the id
+    riding as payload. On depths far apart (no two share a quantized
+    value) the layout admits no tolerance."""
+    m2d, _, radii, valid = _scene(seed=seed, aniso=aniso)
+    n = len(m2d)
+    depths = np.random.default_rng(seed).permutation(
+        np.linspace(2.0, 8.0, n)).astype(np.float32)
+    m2d, depths, radii = _park_deepest_off_screen(m2d, depths, radii)
+    jb, tb = _bin_both(_depthq_cfg(), m2d, depths, radii, valid)
+    _assert_layout_equal(jb, tb)
+    np.testing.assert_array_equal(tb.order.numpy(), np.arange(n))
+    assert tb.pair_orig is tb.pair_gauss
+    # within every tile the pairs run front to back
+    starts, counts = tb.starts.numpy(), tb.counts.numpy()
+    pg = tb.pair_gauss.numpy()
+    for t in range(len(counts)):
+        d = depths[pg[starts[t]:starts[t] + counts[t]]]
+        assert (np.diff(d) >= 0).all()
+
+
+def test_bin_gaussians_depthq_overflow_drops_in_array_order():
+    m2d, depths, radii, valid = _scene(n=400, seed=3)
+    depths = np.random.default_rng(3).permutation(
+        np.linspace(2.0, 8.0, 400)).astype(np.float32)
+    m2d, depths, radii = _park_deepest_off_screen(m2d, depths, radii)
+    jb, tb = _bin_both(_depthq_cfg()._replace(pair_capacity=256), m2d,
+                       depths, radii, valid)
+    _assert_layout_equal(jb, tb)
+    assert int(tb.total_pairs) > 256
+    counts = np.diff(tb.gauss_starts.numpy())
+    kept = np.nonzero(counts)[0]
+    # a prefix in array order: nothing is kept after the first drop
+    first_drop = int(np.argmax(np.cumsum(counts) >= counts.sum()))
+    assert kept.max() <= first_drop
+
+
+def test_bin_gaussians_depthq_ties_render_equal():
+    """With equal quantized depths inside a tile the JAX sort may order the
+    pairs either way (it is not stable, and its order changes from run to
+    run), and compositing is not commutative, so neither the layout nor
+    the image can be compared element by element. What must hold: the CSR
+    is equal, every tile lists the same Gaussians with the same depth
+    sequence (the layouts agree up to the order inside a run of equal
+    depths), the port's order inside a run is ascending id (its sort is
+    stable), and alpha, which does not depend on the order of the pairs a
+    pixel composites, agrees to atol 1e-5 on every pixel neither side
+    ended early."""
+    from test_torch_rasterize import make_scene
+    s = make_scene(6, n=300, width=64, height=48, f=4)
+    s["depths"] = np.round(s["depths"] * 2.0) / 2.0  # many exact ties
+    s["valid"][0] = True
+    s["means2d"], s["depths"], s["radii_xy"] = _park_deepest_off_screen(
+        s["means2d"], s["depths"], s["radii_xy"])
+    cfg = jrz.RasterizeConfig(width=64, height=48, tile_size=16, chunk=32,
+                              tile_block=4, pair_capacity=1 << 14,
+                              backend="pallas", sort_scheme="depthq")
+    jb, tb = _bin_both(cfg, s["means2d"], s["depths"], s["radii_xy"],
+                       s["valid"].astype(np.float32))
+    for name in ("starts", "counts", "gauss_starts"):
+        np.testing.assert_array_equal(getattr(tb, name).numpy(),
+                                      np.asarray(getattr(jb, name)), name)
+    starts, counts = tb.starts.numpy(), tb.counts.numpy()
+    pg_t, pg_j = tb.pair_gauss.numpy(), np.asarray(jb.pair_gauss)
+    tied_runs = 0
+    for t in range(len(counts)):
+        it = pg_t[starts[t]:starts[t] + counts[t]]
+        ij = pg_j[starts[t]:starts[t] + counts[t]]
+        dt, dj = s["depths"][it], s["depths"][ij]
+        np.testing.assert_array_equal(dt, dj)
+        assert (np.diff(dt) >= 0).all()
+        np.testing.assert_array_equal(np.sort(it), np.sort(ij))
+        same = np.diff(dt) == 0
+        assert (np.diff(it)[same] > 0).all()  # ascending id inside a run
+        tied_runs += int(same.sum())
+    assert tied_runs > 50
+
+    j_img, j_a = jrz.rasterize(
+        jnp.asarray(s["means2d"]), jnp.asarray(s["conics"]),
+        jnp.asarray(s["depths"]), jnp.asarray(s["opac"]),
+        jnp.asarray(s["feats"]), jnp.asarray(s["valid"]), cfg,
+        radii=jnp.asarray(s["radii_xy"]))
+    t_img, t_a = trz.rasterize(
+        torch.as_tensor(s["means2d"]), torch.as_tensor(s["conics"]),
+        torch.as_tensor(s["depths"]), torch.as_tensor(s["opac"]),
+        torch.as_tensor(s["feats"]), torch.as_tensor(s["valid"]),
+        trz.RasterizeConfig(**cfg._asdict()),
+        radii=torch.as_tensor(s["radii_xy"]))
+    assert float(t_a.mean()) > 0.05
+    t_a, j_a = t_a.numpy(), np.asarray(j_a)
+    open_px = (t_a < 0.99) & (j_a < 0.99)
+    assert open_px.mean() > 0.3
+    np.testing.assert_allclose(t_a[open_px], j_a[open_px], atol=1e-5)
+    # the image moves with the order inside a run, but not far
+    assert np.abs(t_img.numpy() - np.asarray(j_img)).max() < 0.05
+
+
+def test_depthq_deepest_gaussian_stays_in_its_tile():
+    """Above 24 depth bits float32 rounds the quantizer's upper clamp
+    qmax - 1 up to 2^qbits; left there, the deepest Gaussian's key in tile
+    t equals the shallowest Gaussian's key in tile t + 1 (as in the JAX
+    package), and whenever that one has the lower id the two swap tiles.
+    The port clamps once more as an integer: every tile lists exactly the
+    Gaussians whose rectangle covers it, front to back."""
+    m2d, _, radii, valid = _scene(seed=8)
+    n = len(m2d)
+    depths = np.random.default_rng(8).permutation(
+        np.linspace(2.0, 8.0, n)).astype(np.float32)
+    cfg = _depthq_cfg()
+    assert 32 - int(cfg.n_tiles_padded + 1).bit_length() > 24
+    # the shallowest (low id) and the deepest (high id) cover every tile
+    shallowest, deepest = 1, n - 2
+    for k, d in ((shallowest, 1.0), (deepest, 9.0)):
+        m2d[k], radii[k], valid[k], depths[k] = (64.0, 48.0), 200.0, 1.0, d
+    _, tb = _bin_both(cfg, m2d, depths, radii, valid)
+    starts, counts = tb.starts.numpy(), tb.counts.numpy()
+    pg = tb.pair_gauss.numpy()
+    ts = cfg.tile_size
+    x0 = np.clip(np.floor((m2d[:, 0] - radii[:, 0]) / ts), 0, cfg.tiles_x)
+    x1 = np.clip(np.floor((m2d[:, 0] + radii[:, 0]) / ts) + 1, 0, cfg.tiles_x)
+    y0 = np.clip(np.floor((m2d[:, 1] - radii[:, 1]) / ts), 0, cfg.tiles_y)
+    y1 = np.clip(np.floor((m2d[:, 1] + radii[:, 1]) / ts) + 1, 0, cfg.tiles_y)
+    for t in range(cfg.n_tiles):
+        ids = pg[starts[t]:starts[t] + counts[t]]
+        tx, ty = t % cfg.tiles_x, t // cfg.tiles_x
+        covers = ((valid > 0.5) & (x0 <= tx) & (tx < x1) & (y0 <= ty)
+                  & (ty < y1))
+        np.testing.assert_array_equal(np.sort(ids), np.nonzero(covers)[0])
+        assert (np.diff(depths[ids]) >= 0).all()
+        assert ids[0] == shallowest and ids[-1] == deepest

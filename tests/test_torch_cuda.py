@@ -6,6 +6,8 @@ Imports no JAX, so it runs where only the port is installed:
 
 Without a GPU every test here skips (the kernels have no CPU mode).
 Tolerances: expand_segments bit-equal (it copies 32-bit words);
+backward_tiles and reduce_segments_bykey by chip_smoke.py's checks
+(`compare_backward`, `compare_reduce`), stated at each test;
 forward_tiles by chip_smoke.py's check: image / t_final within 1e-4
 (image: of its max) where `last` agrees; the kernel keeps a running
 transmittance product, the plain version exp of summed log1p, so a few
@@ -101,3 +103,90 @@ def test_kernel_path_matches_oracle(dev):
     assert float((err > 1e-4).float().mean()) <= 1e-3
     assert float((alpha - ref_a).abs().max()) <= 1e-3
     assert float(alpha.mean()) > 0.1
+
+
+def _backward_capture(dev, scheme, seed=2):
+    """One backward through the autograd function on the card, the two
+    backward kernels' arguments captured."""
+    proj, op, feats = _projected(dev, seed=seed)
+    cfg = RasterizeConfig(width=160, height=120, chunk=128,
+                          pair_capacity=1 << 16, sort_scheme=scheme)
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (proj.means2d, proj.conics, op, feats)]
+    gen = torch.Generator(dev).manual_seed(seed)
+    with mock.patch.object(rc, "backward_tiles",
+                           wraps=rc.backward_tiles) as bwd, \
+            mock.patch.object(rc, "reduce_segments_bykey",
+                              wraps=rc.reduce_segments_bykey) as red:
+        img, a = rasterize(leaves[0], leaves[1], proj.depths, leaves[2],
+                           leaves[3], proj.valid, cfg, radii=proj.radii)
+        loss = ((img * torch.randn(img.shape, device=dev, generator=gen)).sum()
+                + (a * torch.randn(a.shape, device=dev, generator=gen)).sum())
+        loss.backward()
+    return bwd.call_args.args, red.call_args.args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["depthq", "packed"])
+def test_backward_tiles_kernel_matches_plain(dev, scheme):
+    """chip_smoke.py's check: decoded slab within rel 2^-7 (+ 1e-4 of the
+    row's largest value for sums that cancel), at most 0.1% of the elements
+    beyond one bf16 ulp, integer zeros where the plain version has them,
+    two runs bit-equal; the float32 rows within 1e-4 of each row's scale."""
+    args, _ = _backward_capture(dev, scheme)
+    before = rc.LAUNCHES["backward_tiles"]
+    got = rc.backward_tiles(*args, pack_grads=True)
+    assert rc.LAUNCHES["backward_tiles"] == before + 1
+    assert torch.equal(got, rc.backward_tiles(*args, pack_grads=True))
+    want = rc.backward_tiles_plain(*args, pack_grads=True)
+    rep = chip_smoke.compare_backward(got, want, args[8])
+    assert rep["elements"] > 10_000
+    got32 = rc.backward_tiles(*args, pack_grads=False)
+    want32 = rc.backward_tiles_plain(*args, pack_grads=False)
+    assert got32.shape == want32.shape == (16, args[0].shape[1])
+    scale = want32.abs().amax(dim=1, keepdim=True).clamp_min(1e-12)
+    assert float(((got32 - want32).abs() / scale).max()) <= 1e-4
+    assert torch.equal(got32 == 0, want32 == 0) or float(
+        ((got32 == 0) != (want32 == 0)).float().mean()) < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["depthq", "packed"])
+def test_reduce_segments_bykey_kernel_matches_plain(dev, scheme):
+    _, (slab, ru, n) = _backward_capture(dev, scheme)
+    before = rc.LAUNCHES["reduce_segments_bykey"]
+    got = rc.reduce_segments_bykey(slab, ru, n)
+    assert rc.LAUNCHES["reduce_segments_bykey"] == before + 1
+    assert torch.equal(got, rc.reduce_segments_bykey(slab, ru, n))
+    chip_smoke.compare_reduce(got, rc.reduce_segments_bykey_plain(slab, ru,
+                                                                  n))
+    # sentinel lanes and an id without lanes
+    keys = torch.tensor([0, 0, 2, 2, 2, 5, 5], dtype=torch.int32, device=dev)
+    vals = torch.arange(1, 8, device=dev, dtype=torch.float32)
+    vals[-2:] = 1e9
+    word = rc.pack_bf16_2(vals, -vals)
+    out = rc.reduce_segments_bykey(torch.stack([word, keys]), 1, 5)
+    want = torch.tensor([[3.0, 0.0, 12.0, 0.0, 0.0],
+                         [-3.0, 0.0, -12.0, 0.0, 0.0],
+                         [3.0, 0.0, 12.0, 0.0, 0.0],
+                         [3.0, 0.0, 12.0, 0.0, 0.0]], device=dev)
+    assert torch.equal(out, want)
+
+
+@pytest.mark.cuda
+def test_autograd_function_matches_oracle(dev):
+    rep = chip_smoke.oracle_grad_check(dev)
+    assert rep["depthq.means2d.max_scaled_err"] < 2e-2
+
+
+@pytest.mark.cuda
+def test_backward_wrappers_refuse_bad_inputs(dev):
+    args, (slab, ru, n) = _backward_capture(dev, "depthq")
+    bad = list(args)
+    bad[3] = bad[3][:, :, :100]  # g_out with the wrong pixel count
+    with pytest.raises(ValueError, match="g_out"):
+        rc.backward_tiles(*bad)
+    with pytest.raises(ValueError, match="ru"):
+        rc.reduce_segments_bykey(slab, 9, n)
+    with pytest.raises(ValueError, match="slab"):
+        rc.reduce_segments_bykey(slab.float(), ru, n)

@@ -161,3 +161,123 @@ def test_normals():
           jnrm.normal_from_depth_image(J(depth), 15.0, 15.0, 8.0, 6.0))
     close(tnrm.surface_normal_output(T(depth), 15.0, 15.0, 8.0, 6.0),
           jnrm.surface_normal_output(J(depth), 15.0, 15.0, 8.0, 6.0))
+
+
+# -- gradients against jax.grad (training runs autograd through these) ------
+
+GRAD_RTOL = 1e-4  # of each gradient's largest magnitude
+
+
+def _grads_both(jfn, tfn, inputs, seed=0):
+    """Gradients of sum(w * f(*inputs)) wrt every input, w fixed random
+    weights, from jax.grad and from torch.autograd."""
+    import jax
+
+    rng = np.random.default_rng(seed)
+    out = np.asarray(jfn(*map(J, inputs)))
+    w = rng.normal(size=out.shape).astype(np.float32)
+    jg = jax.grad(lambda *a: jnp.sum(jfn(*a) * J(w)),
+                  argnums=tuple(range(len(inputs))))(*map(J, inputs))
+    leaves = [T(a).clone().requires_grad_(True) for a in inputs]
+    tg = torch.autograd.grad((tfn(*leaves) * T(w)).sum(), leaves,
+                             allow_unused=True)
+    tg = [np.zeros_like(a) if g is None else g.numpy()
+          for g, a in zip(tg, inputs)]
+    return [np.asarray(g) for g in jg], tg
+
+
+def _assert_grads(jg, tg, names):
+    for name, gj, gt in zip(names, jg, tg):
+        assert np.isfinite(gt).all(), name
+        scale = max(np.abs(gj).max(), 1e-12)
+        np.testing.assert_allclose(gt / scale, gj / scale, rtol=GRAD_RTOL,
+                                   atol=GRAD_RTOL, err_msg=name)
+
+
+def _math_grad_cases():
+    rng = np.random.default_rng(11)
+    n = 64
+    q = _quats(rng, n)  # row 0 is the zero quaternion
+    v = rng.normal(size=(n, 3)).astype(np.float32)
+    dirs = rng.normal(size=(n, 3)).astype(np.float32)
+    coeffs = rng.normal(size=(n, 16, 3)).astype(np.float32)
+    scales_log = rng.normal(size=(n, 3)).astype(np.float32)
+    cam_pos = np.array([0.5, 2.0, 3.0], np.float32)
+    c2w = np.asarray(jcam.look_at((1.0, 2.0, 3.0), (0.0, 0.0, 0.0)))
+    return {
+        "quat_normalize": (jq.quat_normalize, tq.quat_normalize, (q,)),
+        "quat_to_rotmat": (jq.quat_to_rotmat, tq.quat_to_rotmat, (q,)),
+        "quat_rotate": (jq.quat_rotate, tq.quat_rotate, (q, v)),
+        "eval_sh_3": (lambda c, d: jsh.eval_sh(3, c, d),
+                      lambda c, d: tsh.eval_sh(3, c, d), (coeffs, dirs)),
+        "eval_sh_1": (lambda c, d: jsh.eval_sh(1, c, d),
+                      lambda c, d: tsh.eval_sh(1, c, d), (coeffs, dirs)),
+        "per_gaussian_normals": (
+            lambda s, qq, m: jnrm.per_gaussian_normals(s, qq, m, J(cam_pos)),
+            lambda s, qq, m: tnrm.per_gaussian_normals(s, qq, m, T(cam_pos)),
+            (scales_log, q, v)),
+        "world_to_camera_normals": (
+            lambda nn: jnrm.world_to_camera_normals(nn, J(c2w)),
+            lambda nn: tnrm.world_to_camera_normals(nn, T(c2w)), (v,)),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_math_grad_cases()))
+def test_math_op_gradients_match_jax(name):
+    jfn, tfn, inputs = _math_grad_cases()[name]
+    _assert_grads(*_grads_both(jfn, tfn, inputs), [f"{name}[{i}]" for i in
+                                                   range(len(inputs))])
+
+
+@pytest.mark.parametrize("field", ["means2d", "conics", "depths",
+                                   "compensations"])
+def test_project_gaussians_gradients_match_jax(field):
+    """Gradients wrt means, quaternions (one of them zero) and scales
+    through each differentiable output; Gaussians behind the camera or
+    off screen take part (their outputs are defined, if unused)."""
+    rng = np.random.default_rng(5)
+    n = 200
+    means = rng.uniform(-2.0, 2.0, (n, 3)).astype(np.float32)
+    quats = _quats(rng, n)
+    scales = np.exp(rng.uniform(-4.0, -0.5, (n, 3))).astype(np.float32)
+    opac = rng.uniform(0.001, 0.99, n).astype(np.float32)
+    c2w = np.asarray(jcam.look_at((0.5, 0.7, 2.5), (0.0, 0.0, 0.0)))
+    cj = jcam.Camera.create(60.0, 62.0, 32.0, 24.0, c2w, 64, 48)
+    ct = tcam.Camera.create(60.0, 62.0, 32.0, 24.0, c2w, 64, 48,
+                            device="cpu")
+    valid = np.asarray(jproj.project_gaussians(
+        J(means), J(quats), J(scales), cj.viewmat(), cj.fx, cj.fy, cj.cx,
+        cj.cy, 64, 48, opacities=J(opac)).valid)
+
+    def mask(x, m):
+        return x * (m if x.ndim == 1 else m[:, None])
+
+    def jfn(m, q, s):
+        p = jproj.project_gaussians(m, q, s, cj.viewmat(), cj.fx, cj.fy,
+                                    cj.cx, cj.cy, 64, 48, opacities=J(opac))
+        return mask(getattr(p, field), J(valid.astype(np.float32)))
+
+    def tfn(m, q, s):
+        p = tproj.project_gaussians(m, q, s, ct.viewmat(), ct.fx, ct.fy,
+                                    ct.cx, ct.cy, 64, 48, opacities=T(opac))
+        return mask(getattr(p, field), T(valid.astype(np.float32)))
+
+    jg, tg = _grads_both(jfn, tfn, (means, quats, scales))
+    _assert_grads(jg, tg, ["means", "quats", "scales"])
+    assert np.abs(jg[0]).max() > 0
+
+
+def test_rotation_helpers_match_jax():
+    rng = np.random.default_rng(13)
+    a = rng.normal(size=(50, 3)).astype(np.float32)
+    b = rng.normal(size=(50, 3)).astype(np.float32)
+    b[0] = -a[0]  # antiparallel
+    b[1] = a[1]  # parallel
+    rt = tq.rotate_vector_to_vector(T(a), T(b))
+    close(rt, jq.rotate_vector_to_vector(J(a), J(b)), atol=2e-6)
+    unit = b / np.linalg.norm(b, axis=-1, keepdims=True)
+    got = torch.einsum("nij,nj->ni", rt, T(a / np.linalg.norm(
+        a, axis=-1, keepdims=True)))
+    close(got, unit, atol=1e-5)
+    mats = np.asarray(jq.quat_to_rotmat(J(_quats(rng, 50)[1:])))
+    close(tq.rotmat_to_quat(T(mats)), jq.rotmat_to_quat(J(mats)), atol=2e-6)

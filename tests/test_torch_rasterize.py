@@ -196,16 +196,27 @@ def test_rasterize_empty_scene():
 
 
 def test_rasterize_refuses_grad():
+    """Inputs that require grad are accepted on the ported backward (the
+    sortpack reduction by key); the configurations whose reduction kernels
+    are still to be ported refuse them, and only them: without grad every
+    configuration renders."""
     s = make_scene(4, n=20)
     cfg = jrz.RasterizeConfig(width=64, height=48, chunk=32, tile_block=4,
                               pair_capacity=1 << 12)
     s_t = {k: torch.as_tensor(v) for k, v in s.items()}
     s_t["feats"].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        trz.rasterize(s_t["means2d"], s_t["conics"], s_t["depths"],
-                      s_t["opac"], s_t["feats"], s_t["valid"],
-                      trz.RasterizeConfig(**cfg._asdict()))
-    with torch.no_grad():
-        trz.rasterize(s_t["means2d"], s_t["conics"], s_t["depths"],
-                      s_t["opac"], s_t["feats"], s_t["valid"],
-                      trz.RasterizeConfig(**cfg._asdict()))
+    args = (s_t["means2d"], s_t["conics"], s_t["depths"], s_t["opac"],
+            s_t["feats"], s_t["valid"])
+    base = dict(cfg._asdict(), grad_reduce="sortpack")
+    for kw in ({"compact_frac": 0.0}, {"reduce_pieces": 2},
+               {"grad_reduce": "segsum"}):
+        bad = trz.RasterizeConfig(**dict(base, **kw))
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            trz.rasterize(*args, bad)
+        with torch.no_grad():
+            trz.rasterize(*args, bad)
+    img, _ = trz.rasterize(*args, trz.RasterizeConfig(**base))
+    img.sum().backward()
+    g = s_t["feats"].grad
+    assert g.shape == s_t["feats"].shape and torch.isfinite(g).all()
+    assert float(g.abs().sum()) > 0.0
