@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Serve and train a scene with dnsplatter_torch on one NVIDIA GPU, end to end.
+"""Serve and train scenes with dnsplatter_torch on one NVIDIA GPU, end to end.
 
     python3 chip_smoke.py
 
@@ -17,8 +17,16 @@ Phases (any failure raises and the script exits non-zero):
    ring cameras, with every launch counter set to 0 just before and read
    just after. Metrics must be finite (LPIPS is not ported and reports
    NaN), every camera's pair list must fit the capacity, and each kernel
-   of the path must have launched once per rendered frame.
-3. Training, through `Trainer(...).train` at the Trainer's defaults
+   of the path must have launched once per rendered frame. The 100k scene
+   is rendered once more with `exact_cull`: the same image within 1e-5
+   from fewer listed pairs.
+3. Serving a scene of 2^24 = 16,777,216 Gaussians built on the card
+   (extent 6, scale shift -1, so that most lie outside any frustum; pair
+   capacity 12,582,912): `evaluate` over two ring cameras under
+   `sort_scheme="auto"`, which resolves to `tilekey` there, with the
+   per-pair binning rows built by `cumsum_lanes_i32` (once a frame). Every
+   tile's list must run front to back.
+4. Training, through `Trainer(...).train` at the Trainer's defaults
    (depthq keys, the bf16-packed gradient reduction by key with
    compaction, audited pair capacity, state capacity 1.25 x the seeds):
    targets (rgb, sensor depth, normals) rendered by the port from each
@@ -31,7 +39,19 @@ Phases (any failure raises and the script exits non-zero):
    camera, all four kernels launched once a step. 100k seeds: 60 steps
    with a refinement cadence short enough to hold densify-and-cull events
    and an opacity reset; the alive count must change.
-4. Each kernel against its plain PyTorch version, on the card, at the
+5. Training under the three other gradient reductions, each counted the
+   same way (its kernel once a step) and each with the gradients of one
+   frame held against the reduction by key on that frame (rtol 2e-2 / atol
+   2e-3 of each array's largest magnitude; D, which rounds nothing to
+   bf16 while the reduction by key does, atol 5e-3):
+   B. `Trainer(..., TrainConfig(sort_scheme="auto", compact_frac=0.0))` on
+      the 1M scene: `packed32` keys, the whole slab sorted by id,
+      `reduce_segments_packed`;
+   C. `train_step` on that Trainer's state with `reduce_pieces=4`:
+      `reduce_segments_packed_multi`;
+   D. `train_step` on the 100k Trainer's state with `packed` keys and
+      `grad_reduce="segsum"`: the float32 slab, `reduce_segments`.
+6. Each kernel against its plain PyTorch version, on the card, at the
    inputs the main path gives it (serving: camera 0; training: one more
    step after the timed ones, the cotangents those of the real loss):
    expand_segments bit-equal with int32 and float32 rows; forward_tiles
@@ -39,17 +59,19 @@ Phases (any failure raises and the script exits non-zero):
    `last` agrees (see `compare_forward`); backward_tiles decoded within
    2^-7 relative plus 1e-4 of the field's largest value, at most 0.1% of
    elements beyond one bf16 ulp, integer zeros where the plain version
-   has them, two runs bit-equal (see `compare_backward`);
-   reduce_segments_bykey rtol 1e-5 / atol 1e-5 of the row's scale, exact
-   zeros for Gaussians without pairs, two runs bit-equal.
+   has them, two runs bit-equal (see `compare_backward`); the four
+   reductions rtol 1e-5 / atol 1e-5 of the row's scale, exact zeros for
+   Gaussians without pairs, two runs bit-equal; cumsum_lanes_i32
+   bit-equal.
    Times: device time per call, from a batch of calls queued back to back
    behind a spin kernel between one pair of CUDA events (median of three
    batches), so the host's per-call cost is not in it. The bound is the
    larger of the bytes the function must move / 3.35 TB/s and its FP32
    work / 67 TFLOP/s (H100 SXM data sheet), counted on this run's data.
-5. The kernel path against the port's dense oracle on small scenes: the
+7. The kernel path against the port's dense oracle on small scenes: the
    forward, and the gradients of the autograd function (rtol 2e-2 / atol
-   2e-3 of each array's largest magnitude) under depthq and packed keys.
+   2e-3 of each array's largest magnitude) under depthq and packed keys;
+   under `segsum`, which rounds nothing to bf16, rtol 1e-4 / atol 1e-5.
 
 Prints one JSON line per kernel and scene, one per scene, a `kernels`
 line, the card's name and power limit, and last
@@ -59,6 +81,7 @@ checkout of the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import statistics
@@ -96,6 +119,16 @@ REDUCE_TOL = 1e-5
 GRAD_RTOL, GRAD_ATOL = 2e-2, 2e-3
 TRAIN_WARMUP = 3
 TRAIN_STEPS_1M = 20
+PATH_STEPS = 4  # timed steps of each other reduction: one per camera
+# The 2^24 scene: Gaussians, extent, log-scale shift, pair capacity, cameras.
+BIG_SCENE = (1 << 24, 6.0, -1.0, 12_582_912, 2)
+BIG_PAIRS = (6_000_000, 11_000_000)  # each camera must list this many
+CULL_TOL = 1e-5
+SEGSUM_RTOL, SEGSUM_ATOL = 1e-4, 1e-5
+# segsum against the bf16-packed reduction by key on a training frame: the
+# per-pair bf16 rounding under sums that cancel reaches 1.9e-3 of an array's
+# scale on the 100k scene (H100), too near the 2e-3 of GRAD_ATOL to gate on
+SEGSUM_VS_BF16_ATOL = 5e-3
 TRAIN_STEPS_100K = 60
 # A cadence short enough that 60 steps hold densify-and-cull events (steps
 # 20 and 50) and an opacity reset (step 40).
@@ -261,27 +294,29 @@ def make_scene(n, scale_shift, extent, seed, dev):
     return gt, served, alive, cams
 
 
-def pair_totals(params, alive, cams, cfg):
-    """total_pairs of the port's bin_gaussians for each camera, on exactly
-    the inputs `render` hands the rasterizer."""
+def bin_frame(params, alive, cam, cfg):
+    """The port's bin_gaussians on exactly the inputs `render` hands the
+    rasterizer for this camera."""
     import torch
 
     from dnsplatter_torch.ops.projection import project_gaussians
     from dnsplatter_torch.ops.rasterize import bin_gaussians
 
-    totals = []
     with torch.no_grad():
-        for cam in cams:
-            opac = torch.sigmoid(params.opacities)
-            proj = project_gaussians(
-                params.means, params.quats, torch.exp(params.scales),
-                cam.viewmat(), cam.fx, cam.fy, cam.cx, cam.cy, cam.width,
-                cam.height, opacities=opac)
-            validf = (proj.valid & (alive > 0.5)).float()
-            b = bin_gaussians(cfg, proj.means2d, proj.depths, proj.radii_xy,
-                              validf)
-            totals.append(int(b.total_pairs))
-    return totals
+        opac = torch.sigmoid(params.opacities)
+        proj = project_gaussians(
+            params.means, params.quats, torch.exp(params.scales),
+            cam.viewmat(), cam.fx, cam.fy, cam.cx, cam.cy, cam.width,
+            cam.height, opacities=opac)
+        validf = (proj.valid & (alive > 0.5)).float()
+        return bin_gaussians(cfg, proj.means2d, proj.depths, proj.radii_xy,
+                             validf, conics=proj.conics, opacities=opac)
+
+
+def pair_totals(params, alive, cams, cfg):
+    """total_pairs of the port's bin_gaussians for each camera."""
+    return [int(bin_frame(params, alive, cam, cfg).total_pairs)
+            for cam in cams]
 
 
 def check_expand(rc, args, entry, name, scene, gpu):
@@ -424,9 +459,12 @@ def run_scene(name, n, shift, extent, capacity, seed, dev, gpu, tmp):
     for rep in reports:
         rep["launches_per_frame"] = 1
         rep["launches_main_path"] = launches[rep["kernel"]]
+    cull = check_exact_cull(params, alive_l, cams[0], cfg, bg) \
+        if name == "100k" else None
     summary = {
         "scene": name, "n_gaussians": n, "width": WIDTH, "height": HEIGHT,
         "pair_capacity": capacity, "pair_totals": totals,
+        "exact_cull": cull,
         "ms_per_frame": ms_frame,
         "mpix_per_s": WIDTH * HEIGHT / (ms_frame * 1e3),
         "eval_fps": metrics["fps"], "psnr": metrics["rgb_psnr"],
@@ -435,6 +473,178 @@ def run_scene(name, n, shift, extent, capacity, seed, dev, gpu, tmp):
         "launches": launches, "gpu": gpu,
     }
     return summary, reports, launches
+
+
+def check_exact_cull(params, alive, cam, cfg, bg) -> dict:
+    """One frame with and without `exact_cull`: the same image within
+    CULL_TOL from fewer listed pairs (the culled pairs could never pass the
+    kernels' hit test), through the float32 rows of `expand_segments`."""
+    import dataclasses
+
+    import torch
+
+    from dnsplatter_torch.models.dn_model import ModelConfig, get_outputs
+    from dnsplatter_torch.ops import rasterize_cuda as rc
+
+    cfg_cull = dataclasses.replace(cfg, exact_cull=True)
+    with torch.no_grad(), mock.patch.object(
+            rc, "expand_segments", wraps=rc.expand_segments) as expand:
+        plain, _ = get_outputs(params, alive, cam, ModelConfig(), cfg,
+                               sh_degree=3, background=bg)
+        culled, _ = get_outputs(params, alive, cam, ModelConfig(), cfg_cull,
+                                sh_degree=3, background=bg)
+    if expand.call_args.kwargs.get("out_dtype") != torch.float32:
+        raise AssertionError("exact_cull did not expand float32 rows")
+    errs = {k: float((plain[k] - culled[k]).abs().max())
+            for k in ("rgb", "depth", "normal")}
+    listed = int(bin_frame(params, alive, cam, cfg).counts.sum())
+    kept = int(bin_frame(params, alive, cam, cfg_cull).counts.sum())
+    report = {"pairs_listed": listed, "pairs_after_cull": kept,
+              "max_abs_err": errs}
+    if max(errs.values()) > CULL_TOL or not 0 < kept < listed:
+        raise AssertionError(f"exact_cull: {report}")
+    return report
+
+
+def run_big_scene(dev, gpu):
+    """Path A: serve 2^24 Gaussians made on the card. `auto` resolves to
+    `tilekey` and binning builds its rows by prefix sum."""
+    import dataclasses
+
+    import torch
+
+    from dnsplatter_torch.data.synthetic import render_batches, ring_cameras
+    from dnsplatter_torch.eval.evaluator import eval_raster_config, evaluate
+    from dnsplatter_torch.models.dn_model import ModelConfig, get_outputs
+    from dnsplatter_torch.models.gaussians import GaussianParams
+    from dnsplatter_torch.ops import rasterize as rz
+    from dnsplatter_torch.ops import rasterize_cuda as rc
+    from dnsplatter_torch.ops.sh import num_sh_bases, rgb_to_sh
+
+    n, extent, shift, capacity, n_cams = BIG_SCENE
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(dev).manual_seed(24)
+
+    def uniform(lo, hi, *shape):
+        return torch.rand(*shape, device=dev, generator=gen) * (hi - lo) + lo
+
+    quats = torch.randn(n, 4, device=dev, generator=gen)
+    gt = GaussianParams(
+        means=uniform(-extent, extent, n, 3),
+        scales=uniform(-4.2 + shift, -2.8 + shift, n, 3),
+        quats=quats / torch.linalg.norm(quats, dim=-1, keepdim=True),
+        features_dc=rgb_to_sh(uniform(0.05, 0.95, n, 3)),
+        features_rest=torch.randn(n, num_sh_bases(3) - 1, 3, device=dev,
+                                  generator=gen) * 0.1,
+        opacities=uniform(1.0, 3.0, n),
+        normals=torch.zeros((n, 3), device=dev))
+    alive = torch.ones(n, device=dev)
+    served = dataclasses.replace(gt, features_dc=gt.features_dc + 0.05)
+    cams = ring_cameras(n_cams, width=WIDTH, img_height=HEIGHT, focal=700.0,
+                        device=dev)
+    cfg = eval_raster_config(WIDTH, HEIGHT, capacity)
+    if rz._resolve_scheme(cfg, n)[0] != "tilekey":
+        raise AssertionError("auto did not resolve to tilekey at 2^24")
+    batches = render_batches(gt, alive, cams, lambda cam: cfg, sh_degree=3)
+    log(f"[2p24] scene and ground truth: {time.perf_counter() - t0:.1f} s")
+
+    names = ("cumsum_lanes_i32", "forward_tiles", "expand_segments",
+             "expand_segments_stream")
+    rc.LAUNCHES.clear()
+    metrics = evaluate(served, alive, Frames(cams, batches),
+                       pair_capacity=capacity)
+    launches = {k: rc.LAUNCHES[k] for k in names}
+    frames = 1 + n_cams
+    want = {"cumsum_lanes_i32": frames, "forward_tiles": frames,
+            "expand_segments": 0, "expand_segments_stream": 0}
+    if launches != want:
+        raise AssertionError(f"[2p24] launches {launches}, expected {want}")
+    for k in ("rgb_psnr", "rgb_ssim", "depth_abs_rel", "normal_mae", "fps"):
+        if not math.isfinite(metrics[k]):
+            raise AssertionError(f"[2p24] metric {k} = {metrics[k]}")
+
+    # the layout at this size: no overflow, every tile front to back
+    # (pair_gauss indexes the depth-sorted order, so it must ascend)
+    totals, visible = [], []
+    for cam in cams:
+        b = bin_frame(served, alive, cam, cfg)
+        total = int(b.total_pairs)
+        totals.append(total)
+        visible.append(int((b.gauss_starts[1:] > b.gauss_starts[:-1]).sum()))
+        if total > capacity or int(b.starts[-1]) != total:
+            raise AssertionError(f"[2p24] {total} pairs overflow {capacity}")
+        pg = b.pair_gauss[:total].long()
+        slot = torch.arange(1, total, device=dev)
+        tile = torch.searchsorted(b.starts.long(), slot, right=True)
+        prev = torch.searchsorted(b.starts.long(), slot - 1, right=True)
+        if bool(((pg[1:] <= pg[:-1]) & (tile == prev)).any()):
+            raise AssertionError("[2p24] a tile's list is out of depth order")
+        del b, pg, slot, tile, prev
+    if not BIG_PAIRS[0] <= min(totals) <= max(totals) <= BIG_PAIRS[1]:
+        raise AssertionError(f"[2p24] pair totals {totals} outside "
+                             f"{BIG_PAIRS}")
+
+    bg = torch.zeros(3, device=dev)
+    with torch.no_grad(), mock.patch.object(
+            rc, "cumsum_lanes_i32", wraps=rc.cumsum_lanes_i32) as scan:
+        times = []
+        for cam in cams:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            get_outputs(served, alive, cam, ModelConfig(), cfg, sh_degree=3,
+                        background=bg)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    (table,) = scan.call_args.args
+    rep = check_cumsum(rc, table, "2p24", gpu)
+    rep["launches_per_frame"] = 1
+    rep["launches_main_path"] = launches["cumsum_lanes_i32"]
+    ms_frame = statistics.median(times)
+    summary = {
+        "scene": "2p24", "n_gaussians": n, "extent": extent,
+        "scale_shift": shift, "width": WIDTH, "height": HEIGHT,
+        "sort_scheme": "tilekey (auto)", "pair_capacity": capacity,
+        "pair_totals": totals, "gaussians_with_pairs": visible,
+        "ms_per_frame": ms_frame, "eval_fps": metrics["fps"],
+        "psnr": metrics["rgb_psnr"], "ssim": metrics["rgb_ssim"],
+        "depth_abs_rel": metrics["depth_abs_rel"],
+        "normal_mae": metrics["normal_mae"],
+        "max_memory_allocated_gb": peak / 1e9, "launches": launches,
+        "gpu": gpu,
+    }
+    return summary, [rep], launches
+
+
+def check_cumsum(rc, table, scene, gpu):
+    import torch
+
+    got = rc.cumsum_lanes_i32(table)
+    again = rc.cumsum_lanes_i32(table)
+    want = rc.cumsum_lanes_i32_plain(table)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, want) and torch.equal(got, again)):
+        raise AssertionError(
+            f"({scene}) cumsum_lanes_i32: {int((got != want).sum())} words "
+            f"differ from the plain version, {int((got != again).sum())} "
+            "between two runs")
+    ms = device_ms(lambda: rc.cumsum_lanes_i32(table), 20)
+    plain_ms = device_ms(lambda: rc.cumsum_lanes_i32_plain(table), 20)
+    library_ms = device_ms(
+        lambda: torch.cumsum(table, dim=1, dtype=torch.int32), 20)
+    r, c = table.shape
+    nbytes = 2 * r * c * 4
+    ops = r * c
+    t_ops = ops / FP32_OPS_PER_S * 1e3  # one 32-bit add a word
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"scene": scene, "kernel": "cumsum_lanes_i32", "max_abs_err": 0.0,
+            "runs_bit_equal": True, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library": "torch.cumsum",
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bytes": nbytes, "ops": ops, "rows": r, "lanes": c,
+            "max_value": int(want.max()), "gpu": gpu}
 
 
 def oracle_check(dev):
@@ -587,12 +797,12 @@ def check_backward(rc, args, scene, gpu):
             "pairs": int(starts[n_tiles]), "gpu": gpu}
 
 
-def compare_reduce(got, want) -> dict:
-    """reduce_segments_bykey's kernel output against the plain version's:
-    rtol REDUCE_TOL, atol REDUCE_TOL x the row's largest magnitude (the
-    kernel adds a Gaussian's lanes in lane order, index_add_ in any
-    order), and exact zeros where the plain version has them (Gaussians
-    without pairs)."""
+def compare_reduce(got, want, kernel: str = "reduce_segments_bykey") -> dict:
+    """A reduction kernel's output against its plain version's: rtol
+    REDUCE_TOL, atol REDUCE_TOL x the row's largest magnitude (the kernel
+    adds a Gaussian's lanes in lane order, index_add_ in any order), and
+    exact zeros where the plain version has them (Gaussians without
+    pairs)."""
     scale = want.abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
     diff = (got - want).abs()
     excess = diff - (REDUCE_TOL * want.abs() + REDUCE_TOL * scale)
@@ -602,8 +812,8 @@ def compare_reduce(got, want) -> dict:
               "max_scaled_err": float((diff / scale).max()),
               "out_of_tolerance": n_bad, "zero_sums_broken": zero_bad}
     if n_bad or zero_bad:
-        raise AssertionError(f"reduce_segments_bykey disagrees with its "
-                             f"plain version: {report}")
+        raise AssertionError(f"{kernel} disagrees with its plain version: "
+                             f"{report}")
     return report
 
 
@@ -651,6 +861,62 @@ def check_reduce(rc, args, scene, gpu):
             "gpu": gpu}
 
 
+def check_boundary_reduce(rc, kernel, args, scene, gpu):
+    """`reduce_segments_packed`, `reduce_segments_packed_multi` or
+    `reduce_segments` against its plain version on the inputs one training
+    step gave it."""
+    import torch
+
+    fn = getattr(rc, kernel)
+    slab, starts, n = args
+    got = fn(slab, starts, n)
+    again = fn(slab, starts, n)
+    want = getattr(rc, kernel + "_plain")(slab, starts, n)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"({scene}) {kernel}: two runs differ")
+    try:
+        cmp = compare_reduce(got, want, kernel)
+    except AssertionError as e:
+        raise AssertionError(f"({scene}) {e}") from None
+    # Per piece: the lanes below the piece's last boundary, their ids and
+    # their rows as float32. The library call, timed only, is index_add_ of
+    # those rows (decoded beforehand: the decode is not in its time).
+    pieces = slab if slab.ndim == 3 else slab[None]
+    bounds = starts if starts.ndim == 2 else starts[None]
+    ids, vals = [], []
+    for piece, st in zip(pieces, bounds):
+        lens = (st[1:] - st[:-1]).long()
+        live = int(st[-1])
+        ids.append(torch.repeat_interleave(
+            torch.arange(n, device=slab.device), lens, output_size=live))
+        rows = piece[:, :live]
+        vals.append(rows if rows.dtype == torch.float32
+                    else rc._decode_packed(rows))
+    ids, vals = torch.cat(ids), torch.cat(vals, dim=1).contiguous()
+    out = torch.zeros((vals.shape[0], n), device=slab.device)
+    library_ms = device_ms(lambda: out.zero_().index_add_(1, ids, vals), 10)
+    ms = device_ms(lambda: fn(slab, starts, n), 20)
+    plain_ms = device_ms(
+        lambda: getattr(rc, kernel + "_plain")(slab, starts, n), 1)
+    lanes = int(ids.shape[0])
+    rows_in = pieces.shape[1]
+    nbytes = (rows_in * lanes * 4 + bounds.numel() * 4
+              + got.shape[0] * n * 4)
+    ops = got.shape[0] * lanes  # one add per output row and lane
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"scene": scene, "kernel": kernel, **cmp, "runs_bit_equal": True,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "index_add_ of the decoded rows",
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bytes": nbytes, "ops": ops, "lanes": lanes,
+            "slab_shape": list(slab.shape), "ids": n,
+            "ids_with_gradient": int((got[-2:].sum(dim=0) > 0).sum()),
+            "gpu": gpu}
+
+
 class Frames:
     """A scene source: cameras with their batches."""
 
@@ -664,26 +930,17 @@ class Frames:
         return self.cams[i], self.batches[i]
 
 
-def run_training(name, n, shift, extent, capacity, seed, dev, gpu, steps,
-                 model_kw, expect_refinement):
-    """Train the scene through `Trainer.train` and check the run; then hold
-    the two backward kernels against their plain versions at the inputs
-    one more step gives them."""
-    import contextlib
-
+def training_inputs(n, shift, extent, capacity, seed, dev, model_kw):
+    """A scene's training set: targets (rgb, sensor depth, normals)
+    rendered by the port from the ground truth, seed points perturbed from
+    its means, and the model configuration."""
     import numpy as np
-    import torch
 
     from dnsplatter_torch.data.synthetic import render_batches
     from dnsplatter_torch.eval.evaluator import eval_raster_config
     from dnsplatter_torch.models.dn_model import ModelConfig
-    from dnsplatter_torch.models.gaussians import FIELDS
-    from dnsplatter_torch.ops import rasterize as rz
-    from dnsplatter_torch.ops import rasterize_cuda as rc
     from dnsplatter_torch.ops.sh import sh_to_rgb
-    from dnsplatter_torch.train.trainer import TrainConfig, Trainer
 
-    t0 = time.perf_counter()
     gt, _, alive, cams = make_scene(n, shift, extent, seed, dev)
     cfg = eval_raster_config(WIDTH, HEIGHT, capacity)
     data = Frames(cams, render_batches(gt, alive, cams, lambda cam: cfg,
@@ -695,85 +952,144 @@ def run_training(name, n, shift, extent, capacity, seed, dev, gpu, steps,
     model_cfg = ModelConfig(use_depth_loss=True, depth_lambda=0.2,
                             use_normal_loss=True, sh_degree=3,
                             sh_degree_interval=1, **model_kw)
+    return {"n": n, "cams": cams, "data": data, "seeds": (pts, cols),
+            "model_cfg": model_cfg}
+
+
+def timed_steps(step_fn, warmup: int, steps: int, names):
+    """`warmup` then `steps` calls of `step_fn() -> loss`, each ended by a
+    synchronisation; the launch counters of `names` are set to 0 just
+    before the timed calls and read just after. Returns (ms, losses,
+    launches)."""
+    import torch
+
+    from dnsplatter_torch.ops import rasterize_cuda as rc
+
+    def one():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = float(step_fn())
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3, loss
+
+    for _ in range(warmup):
+        one()
+    rc.LAUNCHES.clear()
+    timed = [one() for _ in range(steps)]
+    launches = {k: rc.LAUNCHES[k] for k in names}
+    losses = [v for _, v in timed]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"losses {losses}")
+    return [t for t, _ in timed], losses, launches
+
+
+STEP_KERNELS = ("expand_segments", "expand_segments_stream", "forward_tiles",
+                "backward_tiles")
+REDUCERS = ("reduce_segments_bykey", "reduce_segments_packed",
+            "reduce_segments_packed_multi", "reduce_segments")
+
+
+def expected_step_launches(steps: int, capacity: int, reducer: str) -> dict:
+    """Once a step: one expand entry (by the state's capacity), the two
+    tile kernels and the configuration's reduction; the others never."""
+    want = dict.fromkeys(STEP_KERNELS + REDUCERS, 0)
+    stream = capacity + 1 > (1 << 18)
+    want["expand_segments_stream" if stream else "expand_segments"] = steps
+    want["forward_tiles"] = want["backward_tiles"] = want[reducer] = steps
+    return want
+
+
+def run_training(label, inputs, dev, gpu, steps, expect_refinement,
+                 train_cfg=None, reducer="reduce_segments_bykey"):
+    """Train the scene through `Trainer.train` and check the run; then hold
+    the backward kernels against their plain versions at the inputs one
+    more step gives them. Returns (summary, reports, launches, trainer)."""
+    import contextlib
+
+    import torch
+
+    from dnsplatter_torch.models.gaussians import FIELDS
+    from dnsplatter_torch.ops import rasterize as rz
+    from dnsplatter_torch.ops import rasterize_cuda as rc
+    from dnsplatter_torch.train.trainer import TrainConfig, Trainer
+
+    t0 = time.perf_counter()
+    cams = inputs["cams"]
     with contextlib.redirect_stdout(sys.stderr):
-        trainer = Trainer(data, (pts, cols), model_cfg=model_cfg,
-                          train_cfg=TrainConfig())
+        trainer = Trainer(inputs["data"], inputs["seeds"],
+                          model_cfg=inputs["model_cfg"],
+                          train_cfg=train_cfg or TrainConfig())
     if trainer.params.means.device.type != dev.type:
         raise AssertionError("Trainer did not default to the card")
-    log(f"[train {name}] targets, seed points and Trainer: "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"[{label}] Trainer: {time.perf_counter() - t0:.1f} s")
     cap0 = trainer.params.capacity
     alive0 = int(trainer.alive.sum())
 
     def one_step():
-        torch.cuda.synchronize()
-        t = time.perf_counter()
         with contextlib.redirect_stdout(sys.stderr):
-            row = trainer.train(1, log_every=1 << 30)[-1]
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t) * 1e3, row["loss"]
+            return trainer.train(1, log_every=1 << 30)[-1]["loss"]
 
-    for _ in range(TRAIN_WARMUP):
-        one_step()
-    rc.LAUNCHES.clear()
-    timed = [one_step() for _ in range(steps)]
-    stream = trainer.params.capacity + 1 > (1 << 18)
-    names = ("expand_segments", "expand_segments_stream", "forward_tiles",
-             "backward_tiles", "reduce_segments_bykey")
-    launches = {k: rc.LAUNCHES[k] for k in names}
-    want = {k: steps for k in names}
-    want["expand_segments_stream" if not stream else "expand_segments"] = 0
+    ms, losses, launches = timed_steps(one_step, TRAIN_WARMUP, steps,
+                                       STEP_KERNELS + REDUCERS)
+    want = expected_step_launches(steps, trainer.params.capacity, reducer)
     if launches != want:
-        raise AssertionError(f"[train {name}] launches {launches}, "
+        raise AssertionError(f"[{label}] launches {launches}, "
                              f"expected {want}")
-    ms = [t for t, _ in timed]
-    losses = [v for _, v in timed]
-    if not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"[train {name}] losses {losses}")
     for f in FIELDS:
         if not bool(torch.isfinite(getattr(trainer.params, f)).all()):
-            raise AssertionError(f"[train {name}] {f} is not finite")
+            raise AssertionError(f"[{label}] {f} is not finite")
     # every camera is visited once in four steps: compare like with like
     first = statistics.mean(losses[:N_CAMERAS])
     final = statistics.mean(losses[-N_CAMERAS:])
-    if not expect_refinement and not final < first:
-        raise AssertionError(f"[train {name}] loss did not fall: first "
+    if (not expect_refinement and steps >= 2 * N_CAMERAS
+            and not final < first):
+        raise AssertionError(f"[{label}] loss did not fall: first "
                              f"four steps {first}, last four {final}")
     rcfg = trainer._raster_cfg(cams[0])
     totals = pair_totals(trainer.params, trainer.alive, cams, rcfg)
     if max(totals) > rcfg.pair_capacity:
-        raise AssertionError(f"[train {name}] pair totals {totals} overflow "
+        raise AssertionError(f"[{label}] pair totals {totals} overflow "
                              f"the audited capacity {rcfg.pair_capacity}")
     alive1 = int(trainer.alive.sum())
     grown = trainer.params.capacity != cap0
     if expect_refinement and alive1 == alive0:
-        raise AssertionError(f"[train {name}] {steps} steps with the "
+        raise AssertionError(f"[{label}] {steps} steps with the "
                              "shortened cadence left the alive count at "
                              f"{alive0}: no refinement event ran")
 
     # -- one more step, the kernels' inputs captured --
     with mock.patch.object(rc, "backward_tiles",
                            wraps=rc.backward_tiles) as bwd, \
-            mock.patch.object(rc, "reduce_segments_bykey",
-                              wraps=rc.reduce_segments_bykey) as red, \
+            mock.patch.object(rc, reducer,
+                              wraps=getattr(rc, reducer)) as red, \
             mock.patch.object(rz, "live_pair_slots",
                               wraps=rz.live_pair_slots) as live:
         one_step()
-    bargs = bwd.call_args.args
     if bwd.call_args.kwargs != {"pack_grads": True}:
         raise AssertionError("the training path did not ask for packed "
                              "gradients")
-    live_pairs = int(red.call_args.args[0].shape[1])
-    if live.call_count != 1:
-        raise AssertionError("the training path did not compact the slab")
-    reports = [check_backward(rc, bargs, f"train_{name}", gpu),
-               check_reduce(rc, red.call_args.args, f"train_{name}", gpu)]
+    reduced_lanes = int(red.call_args.args[0].shape[1])
+    grads_vs_bykey = None
+    if reducer == "reduce_segments_bykey":
+        if live.call_count != 1:
+            raise AssertionError("the training path did not compact the "
+                                 "slab")
+        reports = [check_backward(rc, bwd.call_args.args, label, gpu),
+                   check_reduce(rc, red.call_args.args, label, gpu)]
+    else:
+        if live.call_count != 0:
+            raise AssertionError(f"[{label}] compact_frac = 0 compacted")
+        reports = [check_boundary_reduce(rc, reducer, red.call_args.args,
+                                         label, gpu)]
+        grads_vs_bykey = compare_frame_grads(
+            label, frame_grads(trainer, rcfg, 0),
+            frame_grads(trainer, bykey_config(rcfg), 0))
     for rep in reports:
         rep["launches_per_step"] = 1
         rep["launches_main_path"] = launches[rep["kernel"]]
     med = statistics.median(ms)
     summary = {
-        "scene": f"train_{name}", "seed_gaussians": n, "alive": alive1,
+        "scene": label, "seed_gaussians": inputs["n"], "alive": alive1,
         "capacity": trainer.params.capacity, "capacity_grown": grown,
         "width": WIDTH, "height": HEIGHT, "steps": steps,
         "ms_per_step": med, "ms_per_step_min": min(ms),
@@ -781,18 +1097,137 @@ def run_training(name, n, shift, extent, capacity, seed, dev, gpu, steps,
         "loss_first4": first, "loss_last4": final,
         "pair_capacity": rcfg.pair_capacity,
         "audited_pairs": trainer.audited_pairs, "pair_totals": totals,
-        "live_pairs_after_compaction": live_pairs,
-        "sort_scheme": rcfg.sort_scheme, "launches": launches, "gpu": gpu,
+        "lanes_reduced": reduced_lanes, "reducer": reducer,
+        "grads_vs_bykey_max_scaled_err": grads_vs_bykey,
+        "sort_scheme": rz._resolve_scheme(rcfg, trainer.params.capacity)[0]
+        if rcfg.sort_scheme != "depthq" else "depthq",
+        "launches": launches, "gpu": gpu,
     }
-    return summary, reports, launches
+    return summary, reports, launches, trainer
+
+
+def frame_grads(trainer, rcfg, cam_i: int):
+    """Loss and gradients (every parameter field, then the absolute
+    screen-space gradient) of the trainer's current state on frame `cam_i`
+    under `rcfg`, with a black background."""
+    import torch
+
+    from dnsplatter_torch.models.dn_model import sh_degree_to_use
+    from dnsplatter_torch.models.gaussians import FIELDS
+    from dnsplatter_torch.train.trainer import loss_and_grads
+
+    cam, batch = trainer.data.get(cam_i)
+    loss, _, gparams, gabs, _ = loss_and_grads(
+        trainer.model_cfg, rcfg, sh_degree_to_use(trainer.step,
+                                                  trainer.model_cfg),
+        trainer.params, trainer.alive, cam,
+        trainer._device_batch(cam_i, batch), trainer.step,
+        background=torch.zeros(3, device=trainer.device),
+        generator=torch.Generator().manual_seed(0))
+    return float(loss), [getattr(gparams, f) for f in FIELDS] + [gabs]
+
+
+def compare_frame_grads(label, got, want, rtol=GRAD_RTOL,
+                        atol=GRAD_ATOL) -> dict:
+    """Two routes' gradients of one frame, per array scaled by its largest
+    magnitude."""
+    import torch
+
+    from dnsplatter_torch.models.gaussians import FIELDS
+
+    report = {}
+    for name, a, b in zip(FIELDS + ("absgrad",), got[1], want[1]):
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"[{label}] gradient of {name} not finite")
+        scale = max(float(b.abs().max()), 1e-30)
+        err = (a - b).abs() / scale
+        worst = float((err - (atol + rtol * b.abs() / scale)).max())
+        report[name] = float(err.max())
+        if worst > 0.0:
+            raise AssertionError(
+                f"[{label}] gradient of {name} is off the reduction by "
+                f"key's by {report[name]} of its scale")
+    if (not math.isfinite(got[0])
+            or abs(got[0] - want[0]) > 1e-5 * abs(want[0])):
+        raise AssertionError(f"[{label}] losses {got[0]} and {want[0]}")
+    return report
+
+
+def bykey_config(rcfg):
+    """`rcfg` with the default reduction: by key, compacted."""
+    import dataclasses
+
+    return dataclasses.replace(rcfg, grad_reduce="sortpack", reduce_pieces=0,
+                               compact_frac=0.375)
+
+
+def run_step_path(label, trainer, rcfg, reducer, gpu, grad_atol=GRAD_ATOL):
+    """Drive `train_step` on the trainer's state with its RasterizeConfig
+    replaced by `rcfg`: PATH_STEPS timed steps after one warm-up, the
+    launches counted, then the reduction kernel against its plain version
+    on one more step's inputs and the frame's gradients against the
+    reduction by key under the same keys."""
+    import torch
+
+    from dnsplatter_torch.models.dn_model import sh_degree_to_use
+    from dnsplatter_torch.models.gaussians import FIELDS
+    from dnsplatter_torch.ops import rasterize_cuda as rc
+    from dnsplatter_torch.train.trainer import train_step
+
+    grads = compare_frame_grads(
+        label, frame_grads(trainer, rcfg, 0),
+        frame_grads(trainer, bykey_config(rcfg), 0), atol=grad_atol)
+    n_frames = len(trainer.data)
+
+    def one_step():
+        cam_i = trainer.step % n_frames
+        cam, batch = trainer.data.get(cam_i)
+        (trainer.params, trainer.adam, trainer.stats, loss, _) = train_step(
+            trainer.model_cfg, trainer.optim_cfg, rcfg,
+            sh_degree_to_use(trainer.step, trainer.model_cfg),
+            trainer.params, trainer.alive, trainer.adam, trainer.stats, cam,
+            trainer._device_batch(cam_i, batch), trainer.step,
+            generator=trainer.generator)
+        trainer.step += 1
+        return loss
+
+    ms, losses, launches = timed_steps(one_step, 1, PATH_STEPS,
+                                       STEP_KERNELS + REDUCERS)
+    want = expected_step_launches(PATH_STEPS, trainer.params.capacity,
+                                  reducer)
+    if launches != want:
+        raise AssertionError(f"[{label}] launches {launches}, "
+                             f"expected {want}")
+    for f in FIELDS:
+        if not bool(torch.isfinite(getattr(trainer.params, f)).all()):
+            raise AssertionError(f"[{label}] {f} is not finite")
+    with mock.patch.object(rc, reducer, wraps=getattr(rc, reducer)) as red:
+        one_step()
+    rep = check_boundary_reduce(rc, reducer, red.call_args.args, label, gpu)
+    rep["launches_per_step"] = 1
+    rep["launches_main_path"] = launches[reducer]
+    med = statistics.median(ms)
+    summary = {
+        "scene": label, "alive": int(trainer.alive.sum()),
+        "capacity": trainer.params.capacity, "steps": PATH_STEPS,
+        "ms_per_step": med, "ms_per_step_min": min(ms),
+        "ms_per_step_max": max(ms), "losses": losses,
+        "pair_capacity": rcfg.pair_capacity, "reducer": reducer,
+        "sort_scheme": rcfg.sort_scheme, "grad_reduce": rcfg.grad_reduce,
+        "reduce_pieces": rcfg.reduce_pieces,
+        "compact_frac": rcfg.compact_frac,
+        "grads_vs_bykey_max_scaled_err": grads, "launches": launches,
+        "gpu": gpu,
+    }
+    return summary, [rep], launches
 
 
 def oracle_grad_check(dev):
     """Gradients of the kernel path (forward_tiles, backward_tiles, the
-    key sort, reduce_segments_bykey) against torch.autograd through the
-    dense oracle, per array scaled by its largest magnitude: rtol 2e-2,
-    atol 2e-3, the JAX package's tolerance for its bf16-packed
-    reduction."""
+    key sort, the reduction) against torch.autograd through the dense
+    oracle, per array scaled by its largest magnitude: rtol 2e-2, atol
+    2e-3 under the bf16-packed reduction (the JAX package's tolerance for
+    it), rtol 1e-4 / atol 1e-5 under the float32 one."""
     import numpy as np
     import torch
 
@@ -817,15 +1252,22 @@ def oracle_grad_check(dev):
     names = ["means2d", "conics", "opacities", "features"]
     report = {"oracle_grad_check": f"kernel path vs dense oracle, {w}x{h}, "
               f"{n} Gaussians, 7 channels"}
-    for scheme in ("depthq", "packed"):
+    for scheme, reduce, reducer, rtol, atol in (
+            ("depthq", "sortpack", "reduce_segments_bykey", GRAD_RTOL,
+             GRAD_ATOL),
+            ("packed", "sortpack", "reduce_segments_bykey", GRAD_RTOL,
+             GRAD_ATOL),
+            ("packed", "segsum", "reduce_segments", SEGSUM_RTOL,
+             SEGSUM_ATOL)):
         cfg = RasterizeConfig(width=w, height=h, chunk=128,
-                              pair_capacity=1 << 15, sort_scheme=scheme)
+                              pair_capacity=1 << 15, sort_scheme=scheme,
+                              grad_reduce=reduce)
+        tag = scheme if reduce == "sortpack" else f"{scheme}.{reduce}"
         grads = {}
         for path in ("kernel", "oracle"):
             leaves = [t.detach().clone().requires_grad_(True)
                       for t in (proj.means2d, proj.conics, op, feats)]
-            before = (rc.LAUNCHES["backward_tiles"],
-                      rc.LAUNCHES["reduce_segments_bykey"])
+            before = (rc.LAUNCHES["backward_tiles"], rc.LAUNCHES[reducer])
             if path == "kernel":
                 img, a = rasterize(leaves[0], leaves[1], proj.depths,
                                    leaves[2], leaves[3], proj.valid, cfg,
@@ -836,20 +1278,19 @@ def oracle_grad_check(dev):
                     proj.valid, w, h, radii=proj.radii)
             loss = (img * w_img).sum() + (a * w_a).sum()
             grads[path] = torch.autograd.grad(loss, leaves)
-            after = (rc.LAUNCHES["backward_tiles"],
-                     rc.LAUNCHES["reduce_segments_bykey"])
+            after = (rc.LAUNCHES["backward_tiles"], rc.LAUNCHES[reducer])
             if path == "kernel" and after != (before[0] + 1, before[1] + 1):
                 raise AssertionError("the autograd function did not launch "
                                      "both backward kernels")
         for name, gk, go in zip(names, grads["kernel"], grads["oracle"]):
             scale = max(float(go.abs().max()), 1e-6)
             err = (gk - go).abs() / scale
-            allowed = GRAD_ATOL + GRAD_RTOL * go.abs() / scale
+            allowed = atol + rtol * go.abs() / scale
             worst = float((err - allowed).max())
-            report[f"{scheme}.{name}.max_scaled_err"] = float(err.max())
+            report[f"{tag}.{name}.max_scaled_err"] = float(err.max())
             if worst > 0.0:
                 raise AssertionError(
-                    f"gradient of {name} under {scheme} is off the dense "
+                    f"gradient of {name} under {tag} is off the dense "
                     f"oracle's by {float(err.max())} of its scale")
     return report
 
@@ -888,31 +1329,59 @@ def main() -> int:
     print(json.dumps({"build_seconds": build_s,
                       "built": sorted(reports)}), flush=True)
 
+    import dataclasses
+
+    from dnsplatter_torch.train.trainer import TrainConfig
+
     dev = torch.device("cuda")
-    names = ("expand_segments", "expand_segments_stream", "forward_tiles",
-             "backward_tiles", "reduce_segments_bykey")
-    totals = dict.fromkeys(names, 0)
+    totals = collections.Counter()
     kernel_rows = {}
 
-    def keep(summary, reps, launches, scene):
-        for k, v in launches.items():
-            totals[k] += v
+    def keep(summary, reps, launches, *_):
+        totals.update(launches)
         for rep in reps:
             print(json.dumps(rep), flush=True)
-            kernel_rows[(rep["kernel"], scene)] = rep
+            kernel_rows[(rep["kernel"], rep["scene"])] = rep
         print(json.dumps(summary), flush=True)
 
     with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=REPO) as tmp:
         for seed, (name, n, shift, extent, cap) in enumerate(SCENES):
             keep(*run_scene(name, n, shift, extent, cap, seed, dev, gpu,
-                            Path(tmp)), name)
+                            Path(tmp)))
     print(json.dumps(oracle_check(dev)), flush=True)
-    for seed, (name, n, shift, extent, cap) in enumerate(SCENES):
-        refine = name == "100k"
-        keep(*run_training(
-            name, n, shift, extent, cap, seed, dev, gpu,
-            TRAIN_STEPS_100K if refine else TRAIN_STEPS_1M,
-            REFINE_KW if refine else {}, refine), f"train_{name}")
+    keep(*run_big_scene(dev, gpu))
+    torch.cuda.empty_cache()
+
+    (_, n, shift, extent, cap), (_, n1, shift1, extent1, cap1) = SCENES
+    # -- 100k: the default path with refinement, then path D on its state
+    inputs = training_inputs(n, shift, extent, cap, 0, dev, REFINE_KW)
+    *kept, trainer = run_training("train_100k", inputs, dev, gpu,
+                                  TRAIN_STEPS_100K, True)
+    keep(*kept)
+    rcfg = dataclasses.replace(trainer._raster_cfg(inputs["cams"][0]),
+                               sort_scheme="packed", grad_reduce="segsum")
+    keep(*run_step_path("train_100k_segsum", trainer, rcfg,
+                        "reduce_segments", gpu, grad_atol=SEGSUM_VS_BF16_ATOL))
+    del trainer, inputs
+    torch.cuda.empty_cache()
+    # -- 1m: the default path, path B through its own Trainer, path C on
+    # that Trainer's state
+    inputs = training_inputs(n1, shift1, extent1, cap1, 1, dev, {})
+    *kept, trainer = run_training("train_1m", inputs, dev, gpu,
+                                  TRAIN_STEPS_1M, False)
+    keep(*kept)
+    del trainer
+    *kept, trainer = run_training(
+        "train_1m_packed", inputs, dev, gpu, PATH_STEPS, False,
+        train_cfg=TrainConfig(sort_scheme="auto", compact_frac=0.0),
+        reducer="reduce_segments_packed")
+    keep(*kept)
+    rcfg = dataclasses.replace(trainer._raster_cfg(inputs["cams"][0]),
+                               sort_scheme="packed32", reduce_pieces=4,
+                               compact_frac=0.0)
+    keep(*run_step_path("train_1m_pieces", trainer, rcfg,
+                        "reduce_segments_packed_multi", gpu))
+    del trainer, inputs
     print(json.dumps(oracle_grad_check(dev)), flush=True)
 
     src = "dnsplatter_torch/csrc/"
@@ -926,6 +1395,13 @@ def main() -> int:
          f"{pallas}:1289"),
         ("reduce_segments_bykey", "train_1m", "reduce_segments_bykey.cu",
          f"{pallas}:881"),
+        ("reduce_segments_packed", "train_1m_packed",
+         "reduce_segments_packed.cu", f"{pallas}:745"),
+        ("reduce_segments_packed_multi", "train_1m_pieces",
+         "reduce_segments_packed_multi.cu", f"{pallas}:997"),
+        ("reduce_segments", "train_100k_segsum", "reduce_segments.cu",
+         f"{pallas}:619"),
+        ("cumsum_lanes_i32", "2p24", "cumsum_lanes_i32.cu", f"{pallas}:117"),
     )
     kernels = []
     for kname, scene, source, replaces in kinds:

@@ -121,6 +121,18 @@ def backproject_depth(depth: torch.Tensor, fx, fy, cx, cy,
     return pts
 
 
+def euclidean_to_z_depth(depth: torch.Tensor, fx, fy, cx, cy
+                         ) -> torch.Tensor:
+    """(H, W[, 1]) euclidean (ray-length) depth -> (H, W, 1) z-depth."""
+    if depth.ndim == 3:
+        depth = depth[..., 0]
+    h, w = depth.shape
+    coords = pixel_coords(w, h, device=depth.device)
+    x = (coords[..., 0] - cx) / fx
+    y = (coords[..., 1] - cy) / fy
+    return (depth * torch.rsqrt(x * x + y * y + 1.0))[..., None]
+
+
 def look_at(eye, target, up=(0.0, 1.0, 0.0), device=None) -> torch.Tensor:
     """OpenGL-convention (4, 4) c2w looking from `eye` at `target`."""
     dev = resolve_device(device)

@@ -3,8 +3,8 @@ them with ctypes.
 
 Each `csrc/<name>.cu` exposes a plain C interface and compiles on its own
 with nvcc into `dnsplatter_torch/_build/lib<name>-<hash>.so`; the hash
-covers the source and the flags, so an edited source rebuilds and an
-unchanged one is reused. Nothing compiles at import: the first launch
+covers the source, the shared headers (`csrc/*.cuh`) and the flags, so an
+edited source rebuilds and an unchanged one is reused. Nothing compiles at import: the first launch
 builds what it needs, and `build()` compiles every source in parallel, one
 nvcc process each.
 """
@@ -22,7 +22,9 @@ from typing import Dict, Iterable
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = ("expand_segments", "forward_tiles", "backward_tiles",
-           "reduce_segments_bykey")
+           "reduce_segments_bykey", "reduce_segments_packed",
+           "reduce_segments_packed_multi", "reduce_segments",
+           "cumsum_lanes_i32")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -45,6 +47,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -47,6 +47,20 @@ _ENTRIES = {
                               "dns_reduce_segments_bykey",
                               [_VP, ctypes.c_longlong, _I, _I, _I, _VP,
                                ctypes.c_longlong, _VP]),
+    "reduce_segments_packed": ("reduce_segments_packed",
+                               "dns_reduce_segments_packed",
+                               [_VP, ctypes.c_longlong, _I, _VP, _I, _I, _VP,
+                                ctypes.c_longlong, _VP]),
+    "reduce_segments_packed_multi": ("reduce_segments_packed_multi",
+                                     "dns_reduce_segments_packed_multi",
+                                     [_VP, ctypes.c_longlong,
+                                      ctypes.c_longlong, _I, _VP, _I, _I, _I,
+                                      _VP, ctypes.c_longlong, _VP]),
+    "reduce_segments": ("reduce_segments", "dns_reduce_segments",
+                        [_VP, ctypes.c_longlong, _I, _VP, _I, _I, _VP,
+                         ctypes.c_longlong, _VP]),
+    "cumsum_lanes_i32": ("cumsum_lanes_i32", "dns_cumsum_lanes_i32",
+                         [_VP, _VP, _VP, _I, _I, ctypes.c_longlong, _VP]),
 }
 _FNS: Dict[str, ctypes._CFuncPtr] = {}
 
@@ -554,4 +568,203 @@ def reduce_segments_bykey(slab: torch.Tensor, ru: int, n: int
         slab.data_ptr(), slab.stride(0), length, ru, n, out.data_ptr(),
         out.stride(0), _stream()), "reduce_segments_bykey")
     LAUNCHES["reduce_segments_bykey"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Boundary reductions: reduce_segments_packed (rasterize_pallas.py:745),
+# reduce_segments_packed_multi (:997), reduce_segments (:619)
+# ---------------------------------------------------------------------------
+
+
+def _segment_sum_plain(vals: torch.Tensor, starts: torch.Tensor, n: int,
+                       out: torch.Tensor) -> torch.Tensor:
+    """out[:, g] += sum(vals[:, starts[g]:starts[g+1]]) as one scatter-add
+    over the lanes of [starts[0], starts[n])."""
+    st = starts.long()
+    lens = (st[1:n + 1] - st[:n]).clamp_min(0)
+    ids = torch.repeat_interleave(
+        torch.arange(n, dtype=torch.int64, device=vals.device), lens)
+    lanes = torch.repeat_interleave(st[:n] - (torch.cumsum(lens, 0) - lens),
+                                    lens)
+    lanes = lanes + torch.arange(ids.shape[0], dtype=torch.int64,
+                                 device=vals.device)
+    return out.index_add_(1, ids, vals[:, lanes])
+
+
+def _decode_packed(packed: torch.Tensor) -> torch.Tensor:
+    """(PR, C) int32 of bf16 pairs -> (2 PR + 2, C) float32: the decoded
+    fields, then |field 0| and |field 1|."""
+    rows = []
+    for i in range(packed.shape[0]):
+        rows += list(unpack_bf16_2(packed[i]))
+    rows += [rows[0].abs(), rows[1].abs()]
+    return torch.stack(rows)
+
+
+def _check_boundaries(what: str, starts: torch.Tensor, shape, like) -> None:
+    if (starts.dtype != torch.int32 or tuple(starts.shape) != shape
+            or starts.device != like.device or not starts.is_contiguous()):
+        raise ValueError(f"{what}: boundaries must be a contiguous {shape} "
+                         "int32 tensor on the slab's device")
+
+
+def reduce_segments_packed_plain(packed: torch.Tensor, starts: torch.Tensor,
+                                 n: int) -> torch.Tensor:
+    """Plain PyTorch version of `reduce_segments_packed` (any device)."""
+    out = torch.zeros((2 * packed.shape[0] + 2, n), dtype=torch.float32,
+                      device=packed.device)
+    return _segment_sum_plain(_decode_packed(packed), starts, n, out)
+
+
+def reduce_segments_packed(packed: torch.Tensor, starts: torch.Tensor,
+                           n: int) -> torch.Tensor:
+    """Per-Gaussian sums over contiguous ranges of a bf16-packed slab
+    (rasterize_pallas.py:745).
+
+    packed (PR, C) int32 with 1 <= PR <= 7, two bf16 fields per word;
+    starts (N + 1,) int32 ascending: Gaussian g owns lanes
+    [starts[g], starts[g+1]). Returns (2 PR + 2, n) float32: the decoded
+    field sums, then sum |field 0| and sum |field 1|; exact zeros for an
+    empty range. Lanes at or past starts[n] are never read, so the Pallas
+    function's 512-lane tail, coarse starts, `chunk`, `blk` and n_pad have
+    no counterpart.
+    """
+    if not _route(packed, "reduce_segments_packed"):
+        return reduce_segments_packed_plain(packed, starts, n)
+    if (packed.dtype != torch.int32 or packed.ndim != 2
+            or not 1 <= packed.shape[0] <= 7 or packed.stride(1) != 1):
+        raise ValueError("reduce_segments_packed: packed must be a "
+                         "row-contiguous (1..7, C) int32 tensor")
+    _check_boundaries("reduce_segments_packed", starts, (n + 1,), packed)
+    pr, length = packed.shape
+    if length >= 2**31:
+        raise ValueError("reduce_segments_packed: sizes must fit int32")
+    out = torch.empty((2 * pr + 2, n), dtype=torch.float32,
+                      device=packed.device)
+    _check_rc(_entry("reduce_segments_packed")(
+        packed.data_ptr(), packed.stride(0), length, starts.data_ptr(), pr,
+        n, out.data_ptr(), out.stride(0), _stream()),
+        "reduce_segments_packed")
+    LAUNCHES["reduce_segments_packed"] += 1
+    return out
+
+
+def reduce_segments_packed_multi_plain(packed: torch.Tensor,
+                                       piece_starts: torch.Tensor, n: int
+                                       ) -> torch.Tensor:
+    """Plain PyTorch version of `reduce_segments_packed_multi` (any
+    device): piece 0's ranges first, then piece 1's, ..."""
+    kp, pr, _ = packed.shape
+    out = torch.zeros((2 * pr + 2, n), dtype=torch.float32,
+                      device=packed.device)
+    for j in range(kp):
+        _segment_sum_plain(_decode_packed(packed[j]), piece_starts[j], n,
+                           out)
+    return out
+
+
+def reduce_segments_packed_multi(packed: torch.Tensor,
+                                 piece_starts: torch.Tensor, n: int
+                                 ) -> torch.Tensor:
+    """Per-Gaussian sums over KP independently sorted slab pieces
+    (rasterize_pallas.py:997).
+
+    packed (KP, PR, CP) int32 with 1 <= PR <= 7; piece_starts (KP, N + 1)
+    int32, local to each piece: Gaussian g owns lanes
+    [piece_starts[j, g], piece_starts[j, g+1]) of piece j. Returns
+    (2 PR + 2, n) float32 as `reduce_segments_packed`. Lanes of piece j at
+    or past piece_starts[j, n] are never read.
+    """
+    if not _route(packed, "reduce_segments_packed_multi"):
+        return reduce_segments_packed_multi_plain(packed, piece_starts, n)
+    if (packed.dtype != torch.int32 or packed.ndim != 3
+            or not 1 <= packed.shape[1] <= 7 or packed.stride(2) != 1):
+        raise ValueError("reduce_segments_packed_multi: packed must be a "
+                         "lane-contiguous (KP, 1..7, CP) int32 tensor")
+    kp, pr, cp = packed.shape
+    _check_boundaries("reduce_segments_packed_multi", piece_starts,
+                      (kp, n + 1), packed)
+    if cp >= 2**31:
+        raise ValueError("reduce_segments_packed_multi: sizes must fit "
+                         "int32")
+    out = torch.empty((2 * pr + 2, n), dtype=torch.float32,
+                      device=packed.device)
+    _check_rc(_entry("reduce_segments_packed_multi")(
+        packed.data_ptr(), packed.stride(0), packed.stride(1), cp,
+        piece_starts.data_ptr(), kp, pr, n, out.data_ptr(), out.stride(0),
+        _stream()), "reduce_segments_packed_multi")
+    LAUNCHES["reduce_segments_packed_multi"] += 1
+    return out
+
+
+def reduce_segments_plain(grads: torch.Tensor, starts: torch.Tensor, n: int
+                          ) -> torch.Tensor:
+    """Plain PyTorch version of `reduce_segments` (any device)."""
+    out = torch.zeros((grads.shape[0], n), dtype=torch.float32,
+                      device=grads.device)
+    return _segment_sum_plain(grads, starts, n, out)
+
+
+def reduce_segments(grads: torch.Tensor, starts: torch.Tensor, n: int
+                    ) -> torch.Tensor:
+    """Per-Gaussian float32 sums over contiguous ranges
+    (rasterize_pallas.py:619): out[:, g] = sum(grads[:, starts[g]:
+    starts[g+1]]).
+
+    grads (GW, C) float32 with 1 <= GW <= 16, starts (N + 1,) int32
+    ascending. Returns (GW, n); exact zeros for an empty range. Each range
+    is added in lane order, so the result is the same from run to run.
+    """
+    if not _route(grads, "reduce_segments"):
+        return reduce_segments_plain(grads, starts, n)
+    if (grads.dtype != torch.float32 or grads.ndim != 2
+            or not 1 <= grads.shape[0] <= GW or grads.stride(1) != 1):
+        raise ValueError("reduce_segments: grads must be a row-contiguous "
+                         f"(1..{GW}, C) float32 tensor")
+    _check_boundaries("reduce_segments", starts, (n + 1,), grads)
+    gw, length = grads.shape
+    if length >= 2**31:
+        raise ValueError("reduce_segments: sizes must fit int32")
+    out = torch.empty((gw, n), dtype=torch.float32, device=grads.device)
+    _check_rc(_entry("reduce_segments")(
+        grads.data_ptr(), grads.stride(0), length, starts.data_ptr(), gw, n,
+        out.data_ptr(), out.stride(0), _stream()), "reduce_segments")
+    LAUNCHES["reduce_segments"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# cumsum_lanes_i32 (rasterize_pallas.py:117)
+# ---------------------------------------------------------------------------
+
+# lanes per block of csrc/cumsum_lanes_i32.cu (kThreads * kItems)
+_CUMSUM_TILE = 2048
+
+
+def cumsum_lanes_i32_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of `cumsum_lanes_i32` (any device)."""
+    return torch.cumsum(x, dim=1, dtype=torch.int32)
+
+
+def cumsum_lanes_i32(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive int32 prefix sum along the last axis of an (R, C) table
+    (rasterize_pallas.py:117). Integer adds: exact at any magnitude,
+    wrapping like int32 (the Pallas kernel, a float32 matrix product, is
+    exact only below 2^24)."""
+    if not _route(x, "cumsum_lanes_i32"):
+        return cumsum_lanes_i32_plain(x)
+    if x.dtype != torch.int32 or x.ndim != 2 or not x.is_contiguous():
+        raise ValueError("cumsum_lanes_i32: x must be a contiguous (R, C) "
+                         "int32 tensor")
+    r, c = x.shape
+    if r > 65535:
+        raise ValueError("cumsum_lanes_i32: at most 65535 rows")
+    out = torch.empty_like(x)
+    tiles = -(-c // _CUMSUM_TILE)
+    totals = torch.empty((r, tiles), dtype=torch.int32, device=x.device)
+    _check_rc(_entry("cumsum_lanes_i32")(
+        x.data_ptr(), out.data_ptr(), totals.data_ptr(), tiles, r, c,
+        _stream()), "cumsum_lanes_i32")
+    LAUNCHES["cumsum_lanes_i32"] += 1
     return out

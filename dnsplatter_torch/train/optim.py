@@ -58,7 +58,7 @@ class OptimConfig:
     # summed gradients
     accum_features_dc: int = 10
     accum_features_rest: int = 10
-    # camera-optimizer group (not ported yet; kept so configs carry over)
+    # camera-optimizer group (`cam_opt_update`)
     lr_camera_opt: float = 1e-3
     lr_camera_opt_final: float = 5e-5
     accum_camera_opt: int = 100
@@ -192,3 +192,69 @@ def adam_from_numpy(flat: Mapping[str, np.ndarray], device=None) -> AdamState:
     return AdamState(mu=tree("mu"), nu=tree("nu"),
                      count={f: int(flat[f"adam.count.{f}"]) for f in FIELDS},
                      accum=tree("accum"))
+
+
+@dataclasses.dataclass
+class CamOptState:
+    """Camera-pose optimizer state: SO3xR3 tangents and their Adam.
+    `cam_opt_update` changes it in place, like `adam_step` its state."""
+
+    adj: torch.Tensor  # (n_cams, 6) SE(3) tangents
+    accum: torch.Tensor  # (n_cams, 6) gradients summed since the last update
+    mu: torch.Tensor  # (n_cams, 6) Adam first moments
+    nu: torch.Tensor  # (n_cams, 6) Adam second moments
+    count: int  # applied updates (bias correction)
+
+
+CAM_OPT_FIELDS = tuple(f.name for f in dataclasses.fields(CamOptState))
+
+
+def init_cam_opt(n_cams: int, device=None) -> CamOptState:
+    dev = resolve_device(device)
+    return CamOptState(
+        **{f: torch.zeros((max(n_cams, 1), 6), device=dev)
+           for f in CAM_OPT_FIELDS[:-1]}, count=0)
+
+
+def cam_opt_update(cfg: OptimConfig, state: CamOptState, cam_i: int,
+                   gadj: torch.Tensor, step: int) -> None:
+    """Add this step's pose gradient (6,) to camera `cam_i`'s accumulator
+    and, on every `accum_camera_opt`-th step, apply one Adam update over all
+    cameras at the learning rate decaying exponentially from
+    `lr_camera_opt` to `lr_camera_opt_final` over `max_steps`. Plain Adam
+    on the summed gradients; rows without gradients still decay their
+    moments, as one optimizer over the stacked tangents does."""
+    state.accum[cam_i] += gadj
+    if (step + 1) % cfg.accum_camera_opt != 0:
+        return
+    acc = state.accum
+    state.count += 1
+    state.mu = cfg.b1 * state.mu + (1.0 - cfg.b1) * acc
+    state.nu = cfg.b2 * state.nu + (1.0 - cfg.b2) * acc * acc
+    # bias corrections in float32, as the JAX package computes them
+    c = np.float32(state.count)
+    mhat = state.mu / float(np.float32(1.0) - np.float32(cfg.b1) ** c)
+    vhat = state.nu / float(np.float32(1.0) - np.float32(cfg.b2) ** c)
+    frac = min(max(step / cfg.max_steps, 0.0), 1.0)
+    lr = cfg.lr_camera_opt * (
+        cfg.lr_camera_opt_final / cfg.lr_camera_opt) ** frac
+    state.adj = state.adj - lr * mhat / (torch.sqrt(vhat) + cfg.eps)
+    state.accum = torch.zeros_like(acc)
+
+
+def cam_opt_to_numpy(state: CamOptState) -> Dict[str, np.ndarray]:
+    """Checkpoint keys `cam_opt.<field>` and the alias `cam_adj`."""
+    flat = {f"cam_opt.{f}": getattr(state, f).cpu().numpy()
+            for f in CAM_OPT_FIELDS[:-1]}
+    flat["cam_opt.count"] = np.asarray(state.count, np.int32)
+    flat["cam_adj"] = flat["cam_opt.adj"]
+    return flat
+
+
+def cam_opt_from_numpy(flat: Mapping[str, np.ndarray], device=None
+                       ) -> CamOptState:
+    dev = resolve_device(device)
+    return CamOptState(
+        **{f: torch.as_tensor(np.asarray(flat[f"cam_opt.{f}"], np.float32),
+                              device=dev) for f in CAM_OPT_FIELDS[:-1]},
+        count=int(flat["cam_opt.count"]))

@@ -12,9 +12,15 @@ Checkpoints are the JAX package's npz files, key for key (`params.*`,
 `alive`, `step`, `adam.{mu,nu,count,accum}.*`, `cam_opt.*`, `cam_adj`), so
 a run saved by either package resumes in the other.
 
+`camera_optimizer_mode="SO3xR3"` optimizes a pose tangent per camera beside
+the Gaussians (`models/camera_opt.py`, `train/optim.py:cam_opt_update`).
+`steps_per_dispatch = k > 1` takes k steps between two looks at the
+refinement cadence, the log and the SH schedule: the JAX package ran them
+as one device dispatch; here they are k calls of the same step function.
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-the camera optimizer, `steps_per_dispatch > 1`, `devices > 1`,
-`distributed` / `dp > 1`, the viewer and the TensorBoard writer.
+`devices > 1`, `distributed` / `dp > 1`, the viewer and the TensorBoard
+writer.
 """
 
 from __future__ import annotations
@@ -48,13 +54,19 @@ from dnsplatter_torch.models.gaussians import (
 from dnsplatter_torch.ops.camera import Camera
 from dnsplatter_torch.ops.projection import project_gaussians
 from dnsplatter_torch.ops.rasterize import RasterizeConfig
+from dnsplatter_torch.models.camera_opt import apply_adjustment
 from dnsplatter_torch.train.optim import (
     AdamState,
+    CamOptState,
     OptimConfig,
     adam_from_numpy,
     adam_step,
     adam_to_numpy,
+    cam_opt_from_numpy,
+    cam_opt_to_numpy,
+    cam_opt_update,
     init_adam,
+    init_cam_opt,
     pad_adam,
 )
 from dnsplatter_torch.train.strategy import (
@@ -66,9 +78,6 @@ from dnsplatter_torch.train.strategy import (
     update_stats,
 )
 from dnsplatter_torch.train.writers import JsonlWriter
-
-CAM_OPT_FIELDS = ("adj", "accum", "mu", "nu", "count")
-
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
@@ -118,14 +127,17 @@ class TrainConfig:
 
 
 def _check_ported(model_cfg: ModelConfig, tc: TrainConfig) -> None:
-    if model_cfg.camera_optimizer_mode != "off":
-        raise NotImplementedError(
-            "camera_optimizer_mode != 'off' (models/camera_opt.py) is not "
-            "ported yet: ROADMAP.md queue A item 5")
-    if tc.steps_per_dispatch > 1:
-        raise NotImplementedError(
-            "steps_per_dispatch > 1 is not ported yet: ROADMAP.md queue A "
-            "item 6")
+    if model_cfg.camera_optimizer_mode not in ("off", "SO3xR3"):
+        raise ValueError("camera_optimizer_mode "
+                         f"{model_cfg.camera_optimizer_mode!r}: 'off' or "
+                         "'SO3xR3'")
+    k = tc.steps_per_dispatch
+    if k > 1 and (model_cfg.refine_every % k
+                  or model_cfg.sh_degree_interval % k):
+        raise ValueError(f"steps_per_dispatch = {k} must divide "
+                         f"refine_every ({model_cfg.refine_every}) and "
+                         f"sh_degree_interval "
+                         f"({model_cfg.sh_degree_interval})")
     if (tc.devices and tc.devices > 1) or tc.distributed or tc.dp > 1:
         raise NotImplementedError(
             "multi-device training (devices > 1, distributed, dp > 1) is "
@@ -151,12 +163,17 @@ def loss_and_grads(
     background: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
     pearson_corners=None,
+    cam_adj: Optional[torch.Tensor] = None,
 ):
     """The loss of one frame and its gradients: (loss, loss_dict, grads as
-    GaussianParams, absgrad (C, 2), RenderInfo)."""
+    GaussianParams, absgrad (C, 2), RenderInfo). With `cam_adj`, a (6,)
+    pose tangent that requires grad, the frame is rendered from the
+    adjusted camera and the tangent's gradient is left in `cam_adj.grad`."""
     leaves = GaussianParams(**{
         f: getattr(params, f).detach().requires_grad_(True) for f in FIELDS})
     sink = torch.zeros_like(params.means[:, :2]).requires_grad_(True)
+    if cam_adj is not None:
+        camera = apply_adjustment(camera, cam_adj)
     outputs, info = get_outputs(
         leaves, alive, camera, model_cfg, raster_cfg, sh_degree=sh_degree,
         background=background, absgrad_sink=sink, training=True,
@@ -166,9 +183,13 @@ def loss_and_grads(
                                    pearson_corners=pearson_corners,
                                    generator=generator)
     inputs = [getattr(leaves, f) for f in FIELDS] + [sink]
+    if cam_adj is not None:
+        inputs.append(cam_adj)
     grads = torch.autograd.grad(loss, inputs, allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g
              for g, x in zip(grads, inputs)]
+    if cam_adj is not None:
+        cam_adj.grad = grads.pop()
     gparams = GaussianParams(**dict(zip(FIELDS, grads[:-1])))
     loss_dict = {k: v.detach() for k, v in loss_dict.items()}
     return loss.detach(), loss_dict, gparams, grads[-1], info
@@ -189,19 +210,27 @@ def train_step(
     background: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
     pearson_corners=None,
+    cam_state: Optional[CamOptState] = None,
+    cam_i: int = 0,
 ) -> Tuple[GaussianParams, AdamState, RefineStats, torch.Tensor,
            Dict[str, torch.Tensor]]:
     """One optimizer step on one frame: binary opacities, loss and
     gradients, dead slots frozen by `alive`, the Adam step, the
     densification statistics. `adam` is updated in place. Without a
     `background`, a random one is drawn from `generator` (see
-    `get_outputs`); `pearson_corners` feed depth_loss_type "pearson"."""
+    `get_outputs`); `pearson_corners` feed depth_loss_type "pearson". With
+    `cam_state` (camera_optimizer_mode "SO3xR3") the frame is rendered from
+    camera `cam_i`'s adjusted pose and the pose optimizer takes its step
+    too, `cam_state` updated in place."""
     step = int(step)
     params = apply_binary_opacities(params, alive, model_cfg, step)
+    adj = None
+    if cam_state is not None:
+        adj = cam_state.adj[cam_i].detach().clone().requires_grad_(True)
     loss, loss_dict, gparams, gabs, info = loss_and_grads(
         model_cfg, raster_cfg, sh_degree, params, alive, camera, batch, step,
         background=background, generator=generator,
-        pearson_corners=pearson_corners)
+        pearson_corners=pearson_corners, cam_adj=adj)
     # Freeze dead capacity-padding slots.
     gparams = GaussianParams(**{
         f: getattr(gparams, f) * alive.reshape(
@@ -209,6 +238,8 @@ def train_step(
     new_params, adam = adam_step(optim_cfg, params, gparams, adam, step)
     max_size = float(max(raster_cfg.width, raster_cfg.height))
     stats = update_stats(stats, gabs, info.radii, info.valid, max_size)
+    if cam_state is not None:
+        cam_opt_update(optim_cfg, cam_state, cam_i, adj.grad, step)
     return new_params, adam, stats, loss, loss_dict
 
 
@@ -272,12 +303,9 @@ class Trainer:
                 print(f"auto pair capacity: {cap}", flush=True)
         self.step = 0
         self._history: list = []
-        # The camera optimizer is not ported; its state is carried as the
-        # zero state so checkpoints keep the JAX package's keys.
-        n_cams = max(len(data), 1)
-        self.cam_opt = {f: np.zeros((n_cams, 6), np.float32)
-                        for f in CAM_OPT_FIELDS[:-1]}
-        self.cam_opt["count"] = np.zeros((), np.int32)
+        # Carried (all zeros) with the optimizer off too, so checkpoints
+        # keep the JAX package's keys.
+        self.cam_opt = init_cam_opt(len(data), self.device)
         self._writers = []
         if self.out_dir:
             self._writers.append(JsonlWriter(self.out_dir))
@@ -440,15 +468,27 @@ class Trainer:
         self._batch_cache[idx] = (sig, dev)
         return dev
 
-    def train_one(self, cam: Camera, batch, cam_i: int) -> torch.Tensor:
-        """One step on (cam, batch); returns the loss (a device scalar)."""
-        sh = sh_degree_to_use(self.step, self.model_cfg)
+    @property
+    def cam_adj(self) -> torch.Tensor:
+        """(n_cams, 6) current pose tangents."""
+        return self.cam_opt.adj
+
+    def train_one(self, cam: Camera, batch, cam_i, sh: Optional[int] = None
+                  ) -> torch.Tensor:
+        """One step on (cam, batch); returns the loss (a device scalar).
+        `cam_i` keys the batch cache: the frame's index, or (index,
+        downscale factor)."""
+        if sh is None:
+            sh = sh_degree_to_use(self.step, self.model_cfg)
+        pose_opt = self.model_cfg.camera_optimizer_mode != "off"
         (self.params, self.adam, self.stats, loss, self.last_loss_dict
          ) = train_step(
             self.model_cfg, self.optim_cfg, self._raster_cfg(cam), sh,
             self.params, self.alive, self.adam, self.stats, cam,
             self._device_batch(cam_i, batch), self.step,
-            generator=self.generator)
+            generator=self.generator,
+            cam_state=self.cam_opt if pose_opt else None,
+            cam_i=cam_i[0] if isinstance(cam_i, tuple) else cam_i)
         self.step += 1
         return loss
 
@@ -457,15 +497,21 @@ class Trainer:
         total = num_steps or self.train_cfg.max_iterations
         n = len(self.data)
         t0 = time.time()
+        k_dispatch = max(1, self.train_cfg.steps_per_dispatch)
         target = self.step + total
         while self.step < target:
-            cam_i = self.step % n
-            cam, batch = self.data.get(cam_i)
             d = self._downscale_factor()
-            if d > 1:
-                cam, batch = self._downscaled(cam_i, cam, batch, d)
-                cam_i = (cam_i, d)
-            loss = self.train_one(cam, batch, cam_i)
+            # k steps under one SH degree before the cadence is looked at
+            # again (at full resolution only, as in the JAX package)
+            k_now = min(k_dispatch, target - self.step) if d == 1 else 1
+            sh = sh_degree_to_use(self.step, self.model_cfg)
+            for _ in range(k_now):
+                cam_i = self.step % n
+                cam, batch = self.data.get(cam_i)
+                if d > 1:
+                    cam, batch = self._downscaled(cam_i, cam, batch, d)
+                    cam_i = (cam_i, d)
+                loss = self.train_one(cam, batch, cam_i, sh)
             self._refinement(cam)
             if self.step % log_every == 0 or self.step == target:
                 loss_v = float(loss)
@@ -529,9 +575,7 @@ class Trainer:
                 for f, a in params_to_numpy(self.params).items()}
         flat["alive"] = self.alive.cpu().numpy()
         flat["step"] = np.asarray(self.step)
-        for f in CAM_OPT_FIELDS:
-            flat[f"cam_opt.{f}"] = self.cam_opt[f]
-        flat["cam_adj"] = self.cam_opt["adj"]
+        flat.update(cam_opt_to_numpy(self.cam_opt))
         flat.update(adam_to_numpy(self.adam))
         np.savez_compressed(path, **flat)
         meta = dataclasses.asdict(self.model_cfg)
@@ -547,10 +591,14 @@ class Trainer:
             self.adam = adam_from_numpy(
                 {k: z[k] for k in z.files if k.startswith("adam.")},
                 device=self.device)
-            shape = self.cam_opt["adj"].shape
+            shape = tuple(self.cam_opt.adj.shape)
             if "cam_opt.adj" in z.files and z["cam_opt.adj"].shape == shape:
-                self.cam_opt = {f: np.asarray(z[f"cam_opt.{f}"])
-                                for f in CAM_OPT_FIELDS}
+                self.cam_opt = cam_opt_from_numpy(
+                    {k: z[k] for k in z.files if k.startswith("cam_opt.")},
+                    device=self.device)
+            elif "cam_adj" in z.files and z["cam_adj"].shape == shape:
+                # older checkpoints stored only the tangents
+                self.cam_opt.adj = self._tensor(z["cam_adj"])
         self.stats = init_stats(self.params.capacity, self.device)
         # A densified checkpoint can need a larger pair capacity than the
         # seed audit chose.

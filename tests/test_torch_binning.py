@@ -15,6 +15,8 @@ from dnsplatter_torch.ops import rasterize_cuda as rc
 from dnsplatter_tpu.ops import rasterize as jrz
 from dnsplatter_tpu.ops import rasterize_pallas as rp
 
+from test_torch_rasterize import make_scene
+
 
 def _segments(seed, n=300, out_extra=37, empty_frac=0.3):
     """Ascending starts with empty segments, a nonzero first start and an
@@ -73,13 +75,17 @@ def _scene(n=300, w=128, h=96, seed=0, aniso=False):
     return m2d, depths, radii, valid
 
 
-def _bin_both(cfg, m2d, depths, radii, valid):
+def _bin_both(cfg, m2d, depths, radii, valid, conics=None, opac=None):
+    jopt = {} if conics is None else dict(conics=jnp.asarray(conics),
+                                          opacities=jnp.asarray(opac))
+    topt = {} if conics is None else dict(conics=torch.as_tensor(conics),
+                                          opacities=torch.as_tensor(opac))
     jb = jrz.bin_gaussians(cfg, jnp.asarray(m2d), jnp.asarray(depths),
-                           jnp.asarray(radii), jnp.asarray(valid))
+                           jnp.asarray(radii), jnp.asarray(valid), **jopt)
     tcfg = trz.RasterizeConfig(**cfg._asdict())
     tb = trz.bin_gaussians(tcfg, torch.as_tensor(m2d),
                            torch.as_tensor(depths), torch.as_tensor(radii),
-                           torch.as_tensor(valid))
+                           torch.as_tensor(valid), **topt)
     return jb, tb
 
 
@@ -148,15 +154,42 @@ def test_bin_gaussians_overflow_drops_whole_deepest_gaussians():
     assert int(tb.starts[-1]) == acc
 
 
-def test_unported_schemes_raise():
-    m2d, depths, radii, valid = _scene(n=50)
-    args = (torch.as_tensor(m2d), torch.as_tensor(depths),
-            torch.as_tensor(radii), torch.as_tensor(valid))
+def test_unported_schemes_raise(monkeypatch):
+    """The schemes that used to be refused give a valid layout (every tile
+    lists its Gaussians front to back, and the same ones as `packed`), and
+    what must still refuse does: an unknown scheme, and depthq from
+    F32_EXACT_LIMIT Gaussians on (lowered here)."""
+    s = make_scene(4, n=120)
+    args = tuple(torch.as_tensor(s[k]) for k in
+                 ("means2d", "depths", "radii_xy"))
+    args += (torch.as_tensor(s["valid"].astype(np.float32)),
+             torch.as_tensor(s["conics"]), torch.as_tensor(s["opac"]))
+    base = dict(width=64, height=48, chunk=16, tile_block=4,
+                pair_capacity=1 << 12)
+    ref = trz.bin_gaussians(
+        trz.RasterizeConfig(sort_scheme="packed", **base), *args)
     for kw in ({"sort_scheme": "tilekey"}, {"exact_cull": True},
                {"sort_scheme": "depthq", "exact_cull": True}):
-        cfg = trz.RasterizeConfig(width=128, height=96, **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            trz.bin_gaussians(cfg, *args)
+        b = trz.bin_gaussians(trz.RasterizeConfig(**dict(base, **kw)), *args)
+        np.testing.assert_array_equal(b.starts.numpy(), ref.starts.numpy())
+        assert (b.counts <= ref.counts).all() and int(b.counts.sum()) > 0
+        starts, counts = b.starts.numpy(), b.counts.numpy()
+        ids = b.pair_orig.numpy()
+        rids = ref.pair_orig.numpy()
+        for t in range(len(counts)):
+            mine = ids[starts[t]:starts[t] + counts[t]]
+            assert (np.diff(s["depths"][mine]) >= 0).all()
+            assert set(mine) <= set(rids[starts[t]:starts[t + 1]])
+            if not kw.get("exact_cull"):
+                np.testing.assert_array_equal(
+                    mine, rids[starts[t]:starts[t + 1]])
+    with pytest.raises(ValueError, match="unknown sort_scheme"):
+        trz.bin_gaussians(trz.RasterizeConfig(sort_scheme="radix", **base),
+                          *args)
+    monkeypatch.setattr(trz, "F32_EXACT_LIMIT", 100)
+    with pytest.raises(ValueError, match="depthq takes fewer than 100"):
+        trz.bin_gaussians(trz.RasterizeConfig(sort_scheme="depthq", **base),
+                          *args)
 
 
 def _park_deepest_off_screen(m2d, depths, radii, k=0, depth=50.0):
@@ -227,7 +260,6 @@ def test_bin_gaussians_depthq_ties_render_equal():
     stable), and alpha, which does not depend on the order of the pairs a
     pixel composites, agrees to atol 1e-5 on every pixel neither side
     ended early."""
-    from test_torch_rasterize import make_scene
     s = make_scene(6, n=300, width=64, height=48, f=4)
     s["depths"] = np.round(s["depths"] * 2.0) / 2.0  # many exact ties
     s["valid"][0] = True
@@ -309,3 +341,159 @@ def test_depthq_deepest_gaussian_stays_in_its_tile():
         np.testing.assert_array_equal(np.sort(ids), np.nonzero(covers)[0])
         assert (np.diff(depths[ids]) >= 0).all()
         assert ids[0] == shallowest and ids[-1] == deepest
+
+
+def _cull_scene(seed, scheme):
+    """A projected scene (conics and opacities for the ellipse test) with
+    stretched, faint Gaussians, so that a good share of the pairs is
+    culled; under depthq the depths are far apart and the deepest Gaussian
+    covers no tile."""
+    s = make_scene(seed, n=300, width=96, height=64, f=4)
+    rng = np.random.default_rng(seed)
+    s["opac"] = rng.uniform(0.02, 0.9, 300).astype(np.float32)
+    if scheme == "depthq":
+        s["depths"] = rng.permutation(np.linspace(2.0, 8.0, 300)).astype(
+            np.float32)
+        s["valid"][0] = True
+        s["means2d"], s["depths"], s["radii_xy"] = _park_deepest_off_screen(
+            s["means2d"], s["depths"], s["radii_xy"])
+    return s
+
+
+def _bin_scene(cfg, s):
+    return _bin_both(cfg, s["means2d"], s["depths"], s["radii_xy"],
+                     s["valid"].astype(np.float32), s["conics"], s["opac"])
+
+
+def _small_cfg(**kw):
+    base = dict(width=96, height=64, tile_size=16, chunk=16, tile_block=4,
+                pair_capacity=1 << 13, backend="pallas")
+    return jrz.RasterizeConfig(**dict(base, **kw))
+
+
+def test_bin_gaussians_tilekey_bit_equal():
+    """tilekey against the JAX package, and against the port's own packed
+    layout: a stable sort on the tile alone reproduces it exactly."""
+    s = _cull_scene(10, "tilekey")
+    jb, tb = _bin_scene(_small_cfg(sort_scheme="tilekey"), s)
+    _assert_layout_equal(jb, tb)
+    _, pb = _bin_scene(_small_cfg(sort_scheme="packed"), s)
+    for name in ("pair_gauss", "pair_orig", "starts", "counts"):
+        np.testing.assert_array_equal(getattr(tb, name).numpy(),
+                                      getattr(pb, name).numpy(), name)
+    end = int(tb.starts[-1])
+    assert (tb.pair_gauss[end:] == 300).all()
+
+
+@pytest.mark.parametrize("scheme", ["packed", "packed32", "tilekey",
+                                    "depthq"])
+def test_bin_gaussians_exact_cull_bit_equal(scheme):
+    """Culling moves pairs to their tile's tail and shrinks the count; the
+    whole layout, culled slots included, equals the JAX package's."""
+    s = _cull_scene(11, scheme)
+    cfg = _small_cfg(sort_scheme=scheme, exact_cull=True)
+    jb, tb = _bin_scene(cfg, s)
+    _assert_layout_equal(jb, tb)
+    _, plain = _bin_scene(cfg._replace(exact_cull=False), s)
+    np.testing.assert_array_equal(tb.starts.numpy(), plain.starts.numpy())
+    culled = int(plain.counts.sum()) - int(tb.counts.sum())
+    assert culled > 0.05 * int(plain.counts.sum())
+    # a culled slot: the sentinel index under the exact schemes, the real
+    # id under depthq; the original id is real under every scheme
+    starts, counts = tb.starts.numpy(), tb.counts.numpy()
+    t = int(np.argmax(np.diff(starts) - counts))
+    slot = starts[t] + counts[t]
+    assert slot < starts[t + 1]
+    assert int(tb.pair_orig[slot]) < 300
+    assert (int(tb.pair_gauss[slot]) == 300) == (scheme != "depthq")
+    # without conics and opacities the request is a no-op
+    _, no_geo = _bin_both(cfg, s["means2d"], s["depths"], s["radii_xy"],
+                          s["valid"].astype(np.float32))
+    np.testing.assert_array_equal(no_geo.counts.numpy(),
+                                  plain.counts.numpy())
+
+
+@pytest.mark.parametrize("scheme,cap", [
+    ("packed", 1 << 13), ("packed", 256), ("depthq", 1 << 13),
+    ("depthq", 256), ("tilekey", 320),
+])
+def test_bin_gaussians_orig_starts_bit_equal(scheme, cap):
+    """Per-original-id ranges of the id-sorted pair list, with the capacity
+    holding every pair and with whole Gaussians dropped for it (where the
+    drop follows the depth-sorted prefix, not the array order)."""
+    s = _cull_scene(12, scheme)
+    cfg = _small_cfg(sort_scheme=scheme, pair_capacity=cap,
+                     compact_frac=0.0)
+    jb, tb = _bin_scene(cfg, s)
+    _assert_layout_equal(jb, tb)
+    assert (int(tb.total_pairs) > cap) == (cap < 1 << 13)
+    np.testing.assert_array_equal(tb.orig_starts.numpy(),
+                                  np.asarray(jb.orig_starts))
+    # the definition: id g owns that many slots of the list
+    end = int(tb.starts[-1])
+    hist = np.bincount(tb.pair_orig.numpy()[:end], minlength=300)[:300]
+    np.testing.assert_array_equal(np.diff(tb.orig_starts.numpy()), hist)
+    # the default path carries none of it
+    _, default = _bin_scene(cfg._replace(compact_frac=0.375), s)
+    assert default.orig_starts is None and default.piece_starts is None
+
+
+@pytest.mark.parametrize("kp,scheme,cull", [
+    (2, "packed", False), (4, "packed32", True), (4, "depthq", False),
+])
+def test_bin_gaussians_piece_structure_bit_equal(kp, scheme, cull):
+    s = _cull_scene(13, scheme)
+    cfg = _small_cfg(sort_scheme=scheme, reduce_pieces=kp, exact_cull=cull,
+                     pair_capacity=1024, compact_frac=0.0)
+    jb, tb = _bin_scene(cfg, s)
+    _assert_layout_equal(jb, tb)
+    np.testing.assert_array_equal(tb.piece_bounds.numpy(),
+                                  np.asarray(jb.piece_bounds))
+    np.testing.assert_array_equal(tb.piece_starts.numpy(),
+                                  np.asarray(jb.piece_starts))
+    assert tb.piece_starts.dtype == torch.int32
+    assert tuple(tb.piece_starts.shape) == (kp, 301)
+    # the definition: piece j holds, of id g, its slots inside the piece
+    pb = tb.piece_bounds.numpy()
+    assert pb[0] == 0 and pb[-1] == int(tb.starts[-1])
+    assert (np.diff(pb) > 0).sum() >= 2  # the pairs really are split
+    ids = tb.pair_orig.numpy()
+    for j in range(kp):
+        hist = np.bincount(ids[pb[j]:pb[j + 1]], minlength=300)[:300]
+        np.testing.assert_array_equal(
+            np.diff(tb.piece_starts.numpy()[j]), hist)
+    assert trz.RasterizeConfig(**cfg._asdict()).piece_capacity \
+        == cfg.piece_capacity
+
+
+@pytest.mark.parametrize("scheme", ["tilekey", "packed"])
+def test_bin_gaussians_prefix_sum_branch_bit_equal(scheme, monkeypatch):
+    """From F32_EXACT_LIMIT Gaussians on (lowered here) the per-pair rows
+    come from the scattered differences and `cumsum_lanes_i32`, not from
+    `expand_segments`; the layout is the same, Gaussians without pairs in
+    the middle and at the end included, and a culling request is a no-op
+    there."""
+    s = _cull_scene(14, scheme)
+    s["valid"][-20:] = False  # no pairs past the last slot in use
+    calls = []
+    orig = rc.cumsum_lanes_i32
+    monkeypatch.setattr(rc, "cumsum_lanes_i32",
+                        lambda x: (calls.append(tuple(x.shape)), orig(x))[1])
+    monkeypatch.setattr(rc, "expand_segments", None)  # must not be called
+    monkeypatch.setattr(trz, "F32_EXACT_LIMIT", 100)
+    for cull in (False, True):
+        cfg = _small_cfg(sort_scheme=scheme, exact_cull=cull)
+        jb, tb = _bin_scene(cfg._replace(exact_cull=False), s)
+        tcfg = trz.RasterizeConfig(**cfg._asdict())
+        tb = trz.bin_gaussians(
+            tcfg, *(torch.as_tensor(s[k]) for k in
+                    ("means2d", "depths", "radii_xy")),
+            torch.as_tensor(s["valid"].astype(np.float32)),
+            torch.as_tensor(s["conics"]), torch.as_tensor(s["opac"]))
+        _assert_layout_equal(jb, tb)
+    assert calls == [(4, 1 << 13)] * 4
+    # capacity overflow: first slots at or past the capacity are dropped
+    cfg = _small_cfg(sort_scheme=scheme, pair_capacity=256)
+    jb, tb = _bin_scene(cfg, s)
+    _assert_layout_equal(jb, tb)
+    assert int(tb.total_pairs) > 256

@@ -6,8 +6,9 @@ Imports no JAX, so it runs where only the port is installed:
 
 Without a GPU every test here skips (the kernels have no CPU mode).
 Tolerances: expand_segments bit-equal (it copies 32-bit words);
-backward_tiles and reduce_segments_bykey by chip_smoke.py's checks
+backward_tiles and the four reductions by chip_smoke.py's checks
 (`compare_backward`, `compare_reduce`), stated at each test;
+cumsum_lanes_i32 bit-equal (integer adds);
 forward_tiles by chip_smoke.py's check: image / t_final within 1e-4
 (image: of its max) where `last` agrees; the kernel keeps a running
 transmittance product, the plain version exp of summed log1p, so a few
@@ -190,3 +191,136 @@ def test_backward_wrappers_refuse_bad_inputs(dev):
         rc.reduce_segments_bykey(slab, 9, n)
     with pytest.raises(ValueError, match="slab"):
         rc.reduce_segments_bykey(slab.float(), ru, n)
+
+
+def _random_ranges(rng, n, dev, max_len=12):
+    lens = rng.integers(0, max_len, n)
+    lens[rng.uniform(size=n) < 0.3] = 0
+    lens[5] = 1500  # one long range, walked by a single thread
+    return torch.as_tensor(
+        np.concatenate([[0], np.cumsum(lens)]).astype(np.int32), device=dev)
+
+
+def _random_packed(rng, pr, length, dev):
+    vals = torch.as_tensor(
+        rng.normal(size=(2 * pr, length)).astype(np.float32), device=dev)
+    return torch.stack([rc.pack_bf16_2(vals[2 * i], vals[2 * i + 1])
+                        for i in range(pr)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 1000), (5, 2048), (3, 1_000_003)])
+def test_cumsum_lanes_i32_kernel_bit_equal(dev, shape):
+    """Integer adds: bit-equal to torch.cumsum at any magnitude, the int32
+    wrap included; one block, exactly one tile, and many tiles with a
+    ragged end."""
+    rng = np.random.default_rng(shape[1])
+    for lo, hi in ((-50, 60), (1 << 26, 1 << 28)):
+        x = torch.as_tensor(rng.integers(lo, hi, shape).astype(np.int32),
+                            device=dev)
+        before = rc.LAUNCHES["cumsum_lanes_i32"]
+        got = rc.cumsum_lanes_i32(x)
+        assert rc.LAUNCHES["cumsum_lanes_i32"] == before + 1
+        assert torch.equal(got, rc.cumsum_lanes_i32_plain(x))
+    with pytest.raises(ValueError, match="contiguous"):
+        rc.cumsum_lanes_i32(x.t())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gw", [16, 15, 3])
+def test_reduce_segments_kernel_matches_plain(dev, gw):
+    """rtol 1e-5 / atol 1e-5 of the row's scale (the kernel adds a range in
+    lane order, index_add_ in any order), exact zeros for empty ranges, two
+    runs bit-equal; lanes past starts[N] hold 1e9 and are never read."""
+    rng = np.random.default_rng(gw)
+    n = 5000
+    starts = _random_ranges(rng, n, dev)
+    length = int(starts[-1]) + 100
+    grads = torch.as_tensor(rng.normal(size=(gw, length)).astype(np.float32),
+                            device=dev)
+    grads[:, int(starts[-1]):] = 1e9
+    before = rc.LAUNCHES["reduce_segments"]
+    got = rc.reduce_segments(grads, starts, n)
+    assert rc.LAUNCHES["reduce_segments"] == before + 1
+    assert torch.equal(got, rc.reduce_segments(grads, starts, n))
+    chip_smoke.compare_reduce(got, rc.reduce_segments_plain(grads, starts, n),
+                              "reduce_segments")
+    with pytest.raises(ValueError, match="grads"):
+        rc.reduce_segments(grads.int(), starts, n)
+    with pytest.raises(ValueError, match="boundaries"):
+        rc.reduce_segments(grads, starts[:-1], n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pr", [7, 4, 1])
+def test_reduce_segments_packed_kernel_matches_plain(dev, pr):
+    """As `reduce_segments`, on bf16 pairs decoded in the kernel."""
+    rng = np.random.default_rng(pr)
+    n = 5000
+    starts = _random_ranges(rng, n, dev)
+    packed = _random_packed(rng, pr, int(starts[-1]) + 100, dev)
+    packed[:, int(starts[-1]):] = 0x4E6E4E6E  # ~1e9 in both halves
+    before = rc.LAUNCHES["reduce_segments_packed"]
+    got = rc.reduce_segments_packed(packed, starts, n)
+    assert rc.LAUNCHES["reduce_segments_packed"] == before + 1
+    assert torch.equal(got, rc.reduce_segments_packed(packed, starts, n))
+    chip_smoke.compare_reduce(
+        got, rc.reduce_segments_packed_plain(packed, starts, n),
+        "reduce_segments_packed")
+    with pytest.raises(ValueError, match="packed"):
+        rc.reduce_segments_packed(packed.float(), starts, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kp,pr", [(4, 7), (2, 4)])
+def test_reduce_segments_packed_multi_kernel_matches_plain(dev, kp, pr):
+    rng = np.random.default_rng(kp)
+    n = 5000
+    starts = torch.stack([_random_ranges(rng, n, dev, max_len=4 + 3 * j)
+                          for j in range(kp)])
+    cp = int(starts[:, -1].max()) + 64
+    packed = torch.stack([_random_packed(rng, pr, cp, dev)
+                          for _ in range(kp)])
+    for j in range(kp):
+        packed[j, :, int(starts[j, -1]):] = 0x4E6E4E6E
+    before = rc.LAUNCHES["reduce_segments_packed_multi"]
+    got = rc.reduce_segments_packed_multi(packed, starts, n)
+    assert rc.LAUNCHES["reduce_segments_packed_multi"] == before + 1
+    assert torch.equal(got,
+                       rc.reduce_segments_packed_multi(packed, starts, n))
+    chip_smoke.compare_reduce(
+        got, rc.reduce_segments_packed_multi_plain(packed, starts, n),
+        "reduce_segments_packed_multi")
+    with pytest.raises(ValueError, match="boundaries"):
+        rc.reduce_segments_packed_multi(packed, starts[:1], n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    {"compact_frac": 0.0, "sort_scheme": "packed32"},
+    {"compact_frac": 0.0, "reduce_pieces": 4},
+    {"grad_reduce": "segsum"},
+    {"sort_scheme": "tilekey", "exact_cull": True},
+])
+def test_other_reductions_match_the_default_path(dev, kw):
+    """Every route of the backward on the card against the default route
+    (by key, compacted) on the same frame: the bf16 tolerance, rtol 2e-2 /
+    atol 2e-3 of each array's largest magnitude."""
+    proj, op, feats = _projected(dev, seed=4)
+    gen = torch.Generator(dev).manual_seed(4)
+    w_img = torch.randn(120, 160, 7, device=dev, generator=gen)
+    grads = []
+    for extra in ({}, kw):
+        cfg = RasterizeConfig(width=160, height=120, chunk=128,
+                              pair_capacity=1 << 16, **extra)
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (proj.means2d, proj.conics, op, feats)]
+        img, a = rasterize(leaves[0], leaves[1], proj.depths, leaves[2],
+                           leaves[3], proj.valid, cfg, radii=proj.radii)
+        grads.append(torch.autograd.grad((img * w_img).sum() + a.sum(),
+                                         leaves))
+    for g0, g1 in zip(*grads):
+        scale = float(g0.abs().max())
+        assert scale > 0
+        err = (g1 - g0).abs() / scale
+        assert float((err - (2e-3 + 2e-2 * g0.abs() / scale)).max()) <= 0

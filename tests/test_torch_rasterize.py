@@ -196,27 +196,31 @@ def test_rasterize_empty_scene():
 
 
 def test_rasterize_refuses_grad():
-    """Inputs that require grad are accepted on the ported backward (the
-    sortpack reduction by key); the configurations whose reduction kernels
-    are still to be ported refuse them, and only them: without grad every
-    configuration renders."""
+    """Inputs that require grad are accepted under every reduction the JAX
+    package has: each gives finite, non-zero gradients, and all agree with
+    the default route's. What is refused is a `grad_reduce` that names no
+    reduction, and only where a gradient is asked for."""
     s = make_scene(4, n=20)
     cfg = jrz.RasterizeConfig(width=64, height=48, chunk=32, tile_block=4,
                               pair_capacity=1 << 12)
-    s_t = {k: torch.as_tensor(v) for k, v in s.items()}
-    s_t["feats"].requires_grad_(True)
-    args = (s_t["means2d"], s_t["conics"], s_t["depths"], s_t["opac"],
-            s_t["feats"], s_t["valid"])
     base = dict(cfg._asdict(), grad_reduce="sortpack")
-    for kw in ({"compact_frac": 0.0}, {"reduce_pieces": 2},
+    grads = []
+    for kw in ({}, {"compact_frac": 0.0}, {"reduce_pieces": 2},
                {"grad_reduce": "segsum"}):
-        bad = trz.RasterizeConfig(**dict(base, **kw))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            trz.rasterize(*args, bad)
-        with torch.no_grad():
-            trz.rasterize(*args, bad)
-    img, _ = trz.rasterize(*args, trz.RasterizeConfig(**base))
-    img.sum().backward()
-    g = s_t["feats"].grad
-    assert g.shape == s_t["feats"].shape and torch.isfinite(g).all()
-    assert float(g.abs().sum()) > 0.0
+        s_t = {k: torch.as_tensor(v) for k, v in s.items()}
+        s_t["feats"].requires_grad_(True)
+        args = (s_t["means2d"], s_t["conics"], s_t["depths"], s_t["opac"],
+                s_t["feats"], s_t["valid"])
+        img, _ = trz.rasterize(*args, trz.RasterizeConfig(**dict(base, **kw)))
+        img.sum().backward()
+        g = s_t["feats"].grad
+        assert g.shape == s_t["feats"].shape and torch.isfinite(g).all()
+        assert float(g.abs().sum()) > 0.0
+        grads.append(g)
+    for g in grads[1:]:
+        torch.testing.assert_close(g, grads[0], rtol=2e-2, atol=2e-3)
+    bad = trz.RasterizeConfig(**dict(base, grad_reduce="atomics"))
+    with pytest.raises(ValueError, match="unknown grad_reduce"):
+        trz.rasterize(*args, bad)
+    with torch.no_grad():
+        trz.rasterize(*args, bad)
