@@ -53,7 +53,8 @@ Phases (any failure raises and the script exits non-zero):
       `grad_reduce="segsum"`: the float32 slab, `reduce_segments`.
 6. Each kernel against its plain PyTorch version, on the card, at the
    inputs the main path gives it (serving: camera 0; training: one more
-   step after the timed ones, the cotangents those of the real loss):
+   step after the timed ones, the cotangents those of the real loss;
+   forward_tiles both in serving and in that training step):
    expand_segments bit-equal with int32 and float32 rows; forward_tiles
    image / t_final within 1e-4 (image: of its max) on every pixel whose
    `last` agrees (see `compare_forward`); backward_tiles decoded within
@@ -218,15 +219,12 @@ def compare_forward(got, want, payload, n_feats: int) -> dict:
     return report
 
 
-def forward_work(payload, starts, counts, n_tiles: int, tile: int,
-                 tiles_x: int, last, k: int = 128):
-    """The least work of forward_tiles on these inputs, per pixel as (T, P)
-    tensors, from the plain version's `last`: (evaluated, composited).
-
-    A pixel composites every hit up to `last`. The first hit past `last`,
-    if any, is the Gaussian that ended it: the pixel must evaluate its
-    list up to and including it, else the whole list. A tile needs its
-    pairs up to the largest `evaluated` of its pixels."""
+def _composited_chunks(payload, starts, counts, n_tiles: int, tile: int,
+                       tiles_x: int, last, k: int = 128):
+    """The forward's hit test over every tile's list, K in-tile indices at
+    a time: yields (jj (K,), hit (T, P, K), composited (T, P, K)), where
+    `hit` is the test on pairs the tile owns and `composited` the hits at
+    or before the pixel's `last`."""
     import torch
 
     dev = payload.device
@@ -239,8 +237,6 @@ def forward_work(payload, starts, counts, n_tiles: int, tile: int,
     py = ((t_ids // tiles_x)[:, None] * tile + lid // tile).float() + 0.5
     px, py = px[..., None], py[..., None]  # (T, P, 1)
     last = last.reshape(n_tiles, p, 1).long()
-    evaluated = cnt[:, None].expand(n_tiles, p).clone()
-    composited = torch.zeros((n_tiles, p), dtype=torch.int64, device=dev)
     jrow = torch.arange(k, device=dev)
     for c0 in range(0, int(cnt.max()) if n_tiles else 0, k):
         jj = c0 + jrow  # (K,) in-tile index
@@ -253,8 +249,30 @@ def forward_work(payload, starts, counts, n_tiles: int, tile: int,
         alpha = op * torch.exp(-sigma)
         hit = ((sigma >= 0.0) & (alpha >= 1.0 / 255.0)
                & (jj[None, :] < cnt[:, None])[:, None, :])
-        composited += (hit & (jj <= last)).sum(dim=2)
-        ender = torch.where(hit & (jj > last), jj, 1 << 30).amin(dim=2)
+        yield jj, hit, hit & (jj <= last)
+
+
+def forward_work(payload, starts, counts, n_tiles: int, tile: int,
+                 tiles_x: int, last, k: int = 128):
+    """The least work of forward_tiles on these inputs, per pixel as (T, P)
+    tensors, from the plain version's `last`: (evaluated, composited).
+
+    A pixel composites every hit up to `last`. The first hit past `last`,
+    if any, is the Gaussian that ended it: the pixel must evaluate its
+    list up to and including it, else the whole list. A tile needs its
+    pairs up to the largest `evaluated` of its pixels."""
+    import torch
+
+    p = tile * tile
+    cnt = counts[:n_tiles].long()
+    evaluated = cnt[:, None].expand(n_tiles, p).clone()
+    composited = torch.zeros((n_tiles, p), dtype=torch.int64,
+                             device=payload.device)
+    for jj, hit, comp in _composited_chunks(payload, starts, counts, n_tiles,
+                                            tile, tiles_x, last, k):
+        composited += comp.sum(dim=2)
+        # the first hit past `last` ended the pixel
+        ender = torch.where(hit & ~comp, jj, 1 << 30).amin(dim=2)
         evaluated = torch.minimum(evaluated, ender + 1)
     return evaluated, composited
 
@@ -749,13 +767,22 @@ def backward_work(payload, starts, counts, n_tiles: int, tile: int,
     its list up to its own `last` (one geometry evaluation per pair, to
     know which were hits) and does the gradient arithmetic for the hits; a
     tile reads the payload of, and writes slab words for, its pairs up to
-    its deepest contributor."""
+    its deepest contributor. Also counts, for groups of 32 and of 128
+    consecutive pixels (a warp at one and at four pixels a thread), the
+    (group, pair) steps in which some pixel of the group composited the
+    pair: each costs the kernel one warp-wide sum."""
     p = tile * tile
-    _, composited = forward_work(payload, starts, counts, n_tiles, tile,
-                                 tiles_x, last)
+    accepted = 0
+    steps = {32: 0, 128: 0}
+    for _, _, comp in _composited_chunks(payload, starts, counts, n_tiles,
+                                         tile, tiles_x, last):
+        accepted += int(comp.sum())
+        for g in steps:  # a group is at most the tile
+            gp = min(g, p)
+            steps[g] += int(comp.reshape(n_tiles, p // gp, gp, -1)
+                            .any(dim=2).sum())
     lastp = last.reshape(n_tiles, p).long()
     visits = int((lastp + 1).sum())
-    accepted = int(composited.sum())
     replayed = int((lastp.amax(dim=1) + 1).sum())
     ops = (visits * FWD_OPS_PER_VISIT
            + accepted * (BWD_OPS_PER_HIT + 4 * n_feats + (6 + n_feats)))
@@ -763,6 +790,8 @@ def backward_work(payload, starts, counts, n_tiles: int, tile: int,
     nbytes = (replayed * (6 + n_feats + ru) * 4 + (2 * n_tiles + 1) * 4
               + n_tiles * p * (n_feats + 3) * 4)
     return {"visits": visits, "accepted": accepted, "replayed": replayed,
+            "warp_pair_steps_32": steps[32],
+            "warp_pair_steps_128": steps[128],
             "ops": ops, "bytes": nbytes}
 
 
@@ -1002,8 +1031,10 @@ def expected_step_launches(steps: int, capacity: int, reducer: str) -> dict:
 def run_training(label, inputs, dev, gpu, steps, expect_refinement,
                  train_cfg=None, reducer="reduce_segments_bykey"):
     """Train the scene through `Trainer.train` and check the run; then hold
-    the backward kernels against their plain versions at the inputs one
-    more step gives them. Returns (summary, reports, launches, trainer)."""
+    the step's kernels (under the reduction by key: forward_tiles,
+    backward_tiles and the reduction; else the reduction) against their
+    plain versions at the inputs one more step gives them. Returns
+    (summary, reports, launches, trainer)."""
     import contextlib
 
     import torch
@@ -1058,8 +1089,10 @@ def run_training(label, inputs, dev, gpu, steps, expect_refinement,
                              f"{alive0}: no refinement event ran")
 
     # -- one more step, the kernels' inputs captured --
-    with mock.patch.object(rc, "backward_tiles",
-                           wraps=rc.backward_tiles) as bwd, \
+    with mock.patch.object(rc, "forward_tiles",
+                           wraps=rc.forward_tiles) as fwd, \
+            mock.patch.object(rc, "backward_tiles",
+                              wraps=rc.backward_tiles) as bwd, \
             mock.patch.object(rc, reducer,
                               wraps=getattr(rc, reducer)) as red, \
             mock.patch.object(rz, "live_pair_slots",
@@ -1074,7 +1107,8 @@ def run_training(label, inputs, dev, gpu, steps, expect_refinement,
         if live.call_count != 1:
             raise AssertionError("the training path did not compact the "
                                  "slab")
-        reports = [check_backward(rc, bwd.call_args.args, label, gpu),
+        reports = [check_forward(rc, fwd.call_args.args, label, gpu),
+                   check_backward(rc, bwd.call_args.args, label, gpu),
                    check_reduce(rc, red.call_args.args, label, gpu)]
     else:
         if live.call_count != 0:

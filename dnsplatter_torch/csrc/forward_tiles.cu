@@ -13,22 +13,37 @@
 //     hit  <=> sigma >= 0 and alpha >= 1/255
 //     a hit with T (1 - alpha) <= 1e-4 ends the pixel and is not composited
 //
-// The kernel reads the payload in its field-major layout: a batch of pairs
-// is one contiguous run in every field row, so the cooperative load below is
-// coalesced without any transpose in the wrapper.
+// What bounds it: instruction issue and latency. Every (pixel, pair) the
+// pixel visits costs about 20 FP32 operations and one exp on the
+// special-function units (1/8 of the FP32 rate), a hit F fused multiply-adds
+// more, against 4 (6 + F) bytes of payload read once per pair and shared by
+// the tile's P pixels; the visit is one dependent chain (shared load,
+// quadratic, exp, tests, transmittance) of some 200 cycles.
 //
-// What bounds it: arithmetic. Every (pixel, pair) the pixel visits costs
-// about 20 FP32 operations, one exp on the special-function units (1/8 of
-// the FP32 rate) and F fused multiply-adds, against 4 (6 + F) bytes of
-// payload read once per pair and shared by the tile's P pixels. Design: one
-// CTA per tile and one thread per pixel. The CTA stages batches of 256 pairs
-// into shared memory with one load per field per thread; each thread then
-// composites sequentially in registers (T, F accumulators, last index), and
-// a pixel stops at its own terminator: the per-pixel `break` the TPU could
-// only approximate per tile. `__syncthreads_count` ends the whole CTA as soon
-// as no pixel of the tile is still open, so saturated tiles skip the rest of
-// their pair list. The TPU's 128-lane DMA windows, head masking and
-// triangular-matmul transmittance scans are not carried over.
+// Design: one CTA per tile and one thread per pixel, compositing in
+// registers (T, F accumulators, last index); a pixel stops at its own
+// terminator, and `__syncthreads_count` ends the CTA as soon as no pixel of
+// the tile is open. Pairs are staged up to 256 at a time (one per thread)
+// through a two-stage ring of shared-memory records (tile_stage.cuh): each
+// staging thread loads its pair of batch b + 1 into registers before batch
+// b composites and stores it as a record after, so the loads are in flight
+// during the compositing, and one barrier per batch both publishes batch b
+// and frees the stage batch b + 1 goes into. The staging thread also stores
+// the pair's sigma_cut, a bound past which the hit test fails for certain,
+// so a visit far outside the splat skips the exp and the opacity test.
+// Budget per (pixel, pair) visit: two float4 shared loads (broadcast: every
+// thread reads the same record), the offsets and the unfused quadratic (9
+// operations), the cut test; inside the cut the exp (8 instructions on
+// this card, one on the special-function unit) and two tests; per hit
+// ceil(F / 4) float4 loads, F FMAs and the transmittance update. A
+// synchronous copy of each batch (13 scalar loads a thread, then a barrier,
+// with nothing in flight) and 6 + F scalar shared loads a visit measured
+// slower on the card. sigma is computed unfused in the plain version's
+// order (tile_stage.cuh: conic_sigma) and the exp is the same expf, so the
+// hit test decides as the plain version does: a fused quadratic rounds
+// differently, and a pair within rounding of the 1/255 threshold is then
+// composited by one version and not the other (seen on a 1M-Gaussian
+// training frame: 2e-4 on one pixel).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libforward_tiles.so forward_tiles.cu
@@ -37,28 +52,31 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tile_stage.cuh"
+
 namespace {
 
 constexpr float kAlphaThreshold = 1.0f / 255.0f;
 constexpr float kMaxAlpha = 0.999f;
 constexpr float kTransmittanceEps = 1e-4f;
-constexpr int kBatch = 256;  // pairs staged in shared memory per step
+constexpr int kBatch = 256;  // pairs per stage
+constexpr int kStages = 2;
+constexpr int kMaxThreads = 1024;  // tile * tile <= 1024
 
 template <int F>
-__global__ void forward_tiles_kernel(const float* __restrict__ payload,
-                                     long long stride,
-                                     const int32_t* __restrict__ starts,
-                                     const int32_t* __restrict__ counts,
-                                     int tile, int tiles_x,
-                                     float* __restrict__ out,
-                                     float* __restrict__ t_final,
-                                     int32_t* __restrict__ last) {
-  __shared__ float s_pay[(6 + F) * kBatch];
+__global__ void __launch_bounds__(kMaxThreads)
+forward_tiles_kernel(const float* __restrict__ payload, long long stride,
+                     const int32_t* __restrict__ starts,
+                     const int32_t* __restrict__ counts, int tile,
+                     int tiles_x, float* __restrict__ out,
+                     float* __restrict__ t_final,
+                     int32_t* __restrict__ last) {
+  __shared__ dns::PairBatch<F, kBatch> s_pairs[kStages];
 
   const int t = blockIdx.x;
   const int lid = threadIdx.x;
   const int npix = blockDim.x;  // tile * tile
-  const int start = starts[t];
+  const long long start = starts[t];
   const int cnt = counts[t];
   const float px = static_cast<float>((t % tiles_x) * tile + lid % tile) + 0.5f;
   const float py = static_cast<float>((t / tiles_x) * tile + lid / tile) + 0.5f;
@@ -70,28 +88,34 @@ __global__ void forward_tiles_kernel(const float* __restrict__ payload,
   int last_j = -1;
   bool done = false;
 
-  for (int b0 = 0; b0 < cnt; b0 += kBatch) {
-    // Barrier + vote: no thread overwrites the batch others still read,
-    // and the CTA leaves once every pixel of the tile has terminated.
+  // A batch is one pair per staging thread: thread lid < bsz carries
+  // column lid of the next batch in registers while this one composites.
+  const int bsz = min(kBatch, npix);
+  const int nbatches = (cnt + bsz - 1) / bsz;
+  float next[6 + F];
+  if (lid < min(bsz, cnt)) {
+    dns::load_pair<F>(payload, stride, start + lid, next);
+    dns::store_pair<F, kBatch>(s_pairs[0], lid, next);
+  }
+  for (int b = 0; b < nbatches; ++b) {
+    // The barrier publishes batch b, and every thread is past compositing
+    // batch b - 1, whose stage batch b + 1 goes into; the CTA leaves once
+    // no pixel of the tile is open.
     if (__syncthreads_count(!done) == 0) break;
-    const int nb = min(kBatch, cnt - b0);
-    for (int i = lid; i < nb; i += npix) {
-      const long long col = static_cast<long long>(start) + b0 + i;
-#pragma unroll
-      for (int f = 0; f < 6 + F; ++f) {
-        s_pay[f * kBatch + i] = __ldg(payload + f * stride + col);
-      }
-    }
-    __syncthreads();
-    if (done) continue;
-    for (int i = 0; i < nb; ++i) {
-      const float dx = px - s_pay[0 * kBatch + i];
-      const float dy = py - s_pay[1 * kBatch + i];
-      const float sigma = 0.5f * (s_pay[2 * kBatch + i] * dx * dx +
-                                  s_pay[4 * kBatch + i] * dy * dy) +
-                          s_pay[3 * kBatch + i] * dx * dy;
+    const int b0 = b * bsz;
+    const bool stage_next = b + 1 < nbatches && lid < min(bsz, cnt - b0 - bsz);
+    if (stage_next) dns::load_pair<F>(payload, stride, start + b0 + bsz + lid, next);
+    const dns::PairBatch<F, kBatch>& sb = s_pairs[b % kStages];
+    const int nb = min(bsz, cnt - b0);
+    for (int i = 0; i < nb && !done; ++i) {
+      const float4 g = sb.geo[i];  // mx, my, a, b
+      const float4 co = sb.co[i];  // c, op, sigma_cut
+      const float dx = px - g.x;
+      const float dy = py - g.y;
+      const float sigma = dns::conic_sigma(g.z, g.w, co.x, dx, dy);
+      if (sigma > co.z) continue;  // a certain miss: no exp
       if (!(sigma >= 0.0f)) continue;  // also skips NaN
-      const float raw = s_pay[5 * kBatch + i] * expf(-sigma);
+      const float raw = co.y * expf(-sigma);
       if (!(raw >= kAlphaThreshold)) continue;  // same test as on the clamp
       const float alpha = fminf(kMaxAlpha, raw);
       const float next_t = trans * (1.0f - alpha);
@@ -100,11 +124,14 @@ __global__ void forward_tiles_kernel(const float* __restrict__ payload,
         break;
       }
       const float w = alpha * trans;
+      float feat[4 * dns::PairBatch<F, kBatch>::kFeatVecs];
+      dns::load_feats<F, kBatch>(sb, i, feat);
 #pragma unroll
-      for (int f = 0; f < F; ++f) acc[f] += w * s_pay[(6 + f) * kBatch + i];
+      for (int f = 0; f < F; ++f) acc[f] += w * feat[f];
       trans = next_t;
       last_j = b0 + i;
     }
+    if (stage_next) dns::store_pair<F, kBatch>(s_pairs[(b + 1) % kStages], lid, next);
   }
 
   const size_t pix = static_cast<size_t>(t) * npix + lid;
@@ -132,6 +159,9 @@ extern "C" int dns_forward_tiles(const void* payload, long long stride,
                                  int tiles_x, void* out, void* t_final,
                                  void* last, void* stream) {
   if (n_tiles <= 0) return static_cast<int>(cudaGetLastError());
+  if (tile * tile > kMaxThreads) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   auto pay = static_cast<const float*>(payload);
   auto st = static_cast<const int32_t*>(starts);
   auto ct = static_cast<const int32_t*>(counts);

@@ -41,7 +41,7 @@ _ENTRIES = {
                        _VP, _VP, _VP, _VP]),
     "backward_tiles": ("backward_tiles", "dns_backward_tiles",
                        [_VP, ctypes.c_longlong, _VP, _VP, _I, _I, _I, _I,
-                        _VP, _VP, _VP, _VP, _VP, ctypes.c_longlong, _I,
+                        _VP, _VP, _VP, _VP, _VP, _VP, ctypes.c_longlong, _I,
                         _VP]),
     "reduce_segments_bykey": ("reduce_segments_bykey",
                               "dns_reduce_segments_bykey",
@@ -445,6 +445,16 @@ def backward_tiles_plain(payload, tile_starts, tile_counts, g_out, g_alpha,
     return slab
 
 
+def deepest_first(last: torch.Tensor, n_tiles: int) -> torch.Tensor:
+    """The tiles in the order `backward_tiles` starts them: deepest
+    contributor first, (n_tiles,) int32. A tile's replay takes time in
+    proportion to its depth, so the longest start first and the short ones
+    fill the card's tail. Only the schedule changes: each tile's sums are
+    the same bits in any order."""
+    ml = last.reshape(n_tiles, -1).amax(dim=1)
+    return torch.argsort(ml, descending=True, stable=True).to(torch.int32)
+
+
 def backward_tiles(
     payload: torch.Tensor,
     tile_starts: torch.Tensor,
@@ -501,17 +511,20 @@ def backward_tiles(
             ("g_alpha", g_alpha, (n_tiles, 1, p), torch.float32),
             ("t_final", t_final, (n_tiles, 1, p), torch.float32),
             ("last", last, (n_tiles, 1, p), torch.int32)):
+        # the kernel reads each thread's four pixels as one 16-byte word
         if (t.dtype != dt or tuple(t.shape) != shape or t.device != dev
-                or not t.is_contiguous()):
-            raise ValueError(f"backward_tiles: {name} must be a contiguous "
-                             f"{shape} {dt} tensor on the payload's device")
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"backward_tiles: {name} must be a contiguous, "
+                             f"16-byte aligned {shape} {dt} tensor on the "
+                             "payload's device")
     rows, dt = (8, torch.int32) if pack_grads else (GW, torch.float32)
     slab = torch.zeros((rows, payload.shape[1]), dtype=dt, device=dev)
+    order = deepest_first(last, n_tiles)
     _check_rc(_entry("backward_tiles")(
         payload.data_ptr(), payload.stride(0), tile_starts.data_ptr(),
         tile_counts.data_ptr(), n_tiles, n_feats, tile, tiles_x,
         g_out.data_ptr(), g_alpha.data_ptr(), t_final.data_ptr(),
-        last.data_ptr(), slab.data_ptr(), slab.stride(0),
+        last.data_ptr(), order.data_ptr(), slab.data_ptr(), slab.stride(0),
         1 if pack_grads else 0, _stream()), "backward_tiles")
     LAUNCHES["backward_tiles"] += 1
     return slab

@@ -384,6 +384,10 @@ def test_compare_reduce_and_backward_work():
     assert work["replayed"] == int((lastn.max(axis=1) + 1).sum())
     assert work["replayed"] <= int(arrays[1][t])
     assert work["ops"] > work["visits"] and work["bytes"] > 0
+    # a group of 128 pixels sums a pair if any of its quarters does
+    s32, s128 = work["warp_pair_steps_32"], work["warp_pair_steps_128"]
+    assert 0 < s128 <= s32 <= min(4 * s128, work["accepted"])
+    assert s128 <= 2 * work["replayed"]
 
 
 def test_render_sinks_match_jax():
@@ -451,3 +455,47 @@ def test_render_sinks_match_jax():
     assert (tg[3] >= 0).all() and float(tg[3].sum()) > 0
     assert (tg[3] + 1e-6 >= tg[2].abs() * (1 - 2e-2)).all()
     assert not info.radii.requires_grad  # the radius stays out of the graph
+
+
+def test_deepest_first_orders_tiles():
+    """The backward kernel's tile schedule: a permutation of the tiles,
+    deepest contributor first, ties and empty tiles (last = -1) in tile
+    order."""
+    last = torch.tensor([[[-1, -1]], [[3, 7]], [[2, -1]], [[7, 0]],
+                         [[-1, -1]]], dtype=torch.int32)
+    order = rc.deepest_first(last, 5)
+    assert order.dtype == torch.int32
+    assert order.tolist() == [1, 3, 2, 0, 4]
+
+
+def test_ab_script_reads_ptxas_reports():
+    """ab_tile_kernels.py's ptxas parsing and the residency it derives."""
+    from dnsplatter_torch.scripts import ab_tile_kernels as ab
+
+    log = ("ptxas info    : Compiling entry function '_ZN1a20forward_tiles_"
+           "kernelILi7EEEvPKf' for 'sm_90a'\n"
+           "ptxas info    : Used 52 registers, used 1 barriers, 28672 bytes "
+           "smem, 400 bytes cmem[0]\n"
+           "ptxas info    : Compiling entry function '_ZN1a21backward_tiles_"
+           "kernelILi7ELb1ELi2EEEvPKf' for 'sm_90a'\n"
+           "ptxas info    : Used 61 registers, used 1 barriers, 21540 bytes "
+           "smem, 400 bytes cmem[0]\n"
+           "ptxas info    : Compiling entry function '_ZN1a21backward_tiles_"
+           "kernelILi7ELb1ELi4EEEvPKf' for 'sm_90a'\n"
+           "ptxas info    : Used 95 registers, used 1 barriers, 12820 bytes "
+           "smem, 400 bytes cmem[0]\n")
+    figs = ab.parse_ptxas(log)
+    assert figs["_ZN1a20forward_tiles_kernelILi7EEEvPKf"] == {
+        "registers": 52, "smem": 28672}
+    assert len(figs) == 3
+    rep = ab._report("forward_tiles", log, 256,
+                     ab.TAGS[("current", "forward_tiles")])
+    # 52 registers round up to 56 a thread: 1,792 a warp, 36 warps a SM,
+    # 4 CTAs of 8 warps (shared memory would allow 7, threads 8)
+    assert rep["resident_ctas"] == 4
+    # the four-pixel instance, not the two-pixel one beside it
+    rep = ab._report("backward_tiles", log, 64,
+                     ab.TAGS[("current", "backward_tiles")])
+    assert rep["registers"] == 95 and rep["resident_ctas"] == 10
+    assert ab.resident_ctas(32, 13312, 256) == 8
+    assert ab.resident_ctas(72, 21028, 128) == 7

@@ -324,3 +324,125 @@ def test_other_reductions_match_the_default_path(dev, kw):
         assert scale > 0
         err = (g1 - g0).abs() / scale
         assert float((err - (2e-3 + 2e-2 * g0.abs() / scale)).max()) <= 0
+
+
+def _tile_case(dev, tile, n_feats, counts, seed, offset=3):
+    """Synthetic tile kernel inputs: tiles_x = 4, tile t holds counts[t]
+    pairs around it (a count of -N: N opaque, wide splats that end every
+    pixel of the tile within a few pairs). The first tile starts `offset`
+    columns into the payload and the row stride is odd, so neither the
+    starts nor the rows are 16-byte aligned."""
+    rng = np.random.default_rng(seed)
+    tiles_x = 4
+    n_tiles = len(counts)
+    pw = 6 + n_feats
+    cols = []
+    for t, c in enumerate(counts):
+        n = abs(c)
+        x0, y0 = (t % tiles_x) * tile, (t // tiles_x) * tile
+        a = rng.uniform(0.02, 0.3, n)
+        cc = rng.uniform(0.02, 0.3, n)
+        b = rng.uniform(-0.5, 0.5, n) * np.sqrt(a * cc)
+        op = rng.uniform(0.01, 0.12, n)
+        if c < 0:
+            a, cc, b, op = a * 1e-3, cc * 1e-3, b * 1e-3, np.full(n, 0.99)
+        cols.append(np.stack([
+            x0 + rng.uniform(-2, tile + 2, n), y0 + rng.uniform(-2, tile + 2, n),
+            a, b, cc, op, *rng.uniform(0.0, 1.0, (n_feats, n))]))
+    body = np.concatenate(cols, axis=1)
+    lens = np.array([abs(c) for c in counts])
+    width = offset + body.shape[1] + 5
+    width += 1 - width % 2  # odd
+    payload = np.zeros((-(-pw // 8) * 8, width), np.float32)
+    payload[:pw, offset:offset + body.shape[1]] = body
+    starts = np.concatenate([[0], np.cumsum(lens)]) + offset
+    as_t = lambda x, dt: torch.as_tensor(np.asarray(x, dt), device=dev)
+    return (as_t(payload, np.float32), as_t(starts, np.int32),
+            as_t(lens, np.int32), n_tiles, n_feats, tile, tiles_x, 128)
+
+
+# pair counts per tile around the kernels' batches (forward 256 pairs,
+# backward 32), and a tile that ends every pixel in its first batch
+EDGE_COUNTS = [0, 1, 31, 32, 33, 255, 256, 257, 700, -600, 2, 95]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [8, 16])
+@pytest.mark.parametrize("n_feats", [1, 2, 7, 8])
+def test_forward_tiles_kernel_edges(dev, tile, n_feats):
+    """chip_smoke.py's forward check at the batch edges, tiles 8 and 16,
+    odd and even channel counts, unaligned starts; a NaN conic is skipped
+    like a miss, and a tile whose pixels all end early stops."""
+    args = _tile_case(dev, tile, n_feats, EDGE_COUNTS, seed=tile + n_feats)
+    payload, starts = args[0], args[1]
+    payload[2, int(starts[4]) + 5] = float("nan")
+    before = rc.LAUNCHES["forward_tiles"]
+    got = rc.forward_tiles(*args)
+    assert rc.LAUNCHES["forward_tiles"] == before + 1
+    want = rc.forward_tiles_plain(*args)
+    chip_smoke.compare_forward(got, want, payload, n_feats)
+    again = rc.forward_tiles(*args)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    # the preconditions the case is built for
+    last = want[2][:, 0]
+    assert int(last[0].max()) == -1 and int(last[1].max()) == 0
+    assert bool((last[9] < 8).all())  # 600 opaque splats: all ended
+    assert int(last[8].max()) >= 256  # a pixel composited past one batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [8, 16])
+@pytest.mark.parametrize("n_feats", [1, 2, 7, 8])
+@pytest.mark.parametrize("pack", [True, False])
+def test_backward_tiles_kernel_edges(dev, tile, n_feats, pack):
+    """chip_smoke.py's backward check at the batch edges (packed: decoded
+    within rel 2^-7 + 1e-4 of the row's largest value, <= 0.1% beyond one
+    bf16 ulp, integer zeros kept; float32 rows: the same element bound),
+    two runs bit-equal, no word written past a tile's deepest
+    contributor."""
+    fargs = _tile_case(dev, tile, n_feats, EDGE_COUNTS, seed=tile * n_feats)
+    payload, starts, counts, n_tiles = fargs[:4]
+    _, t_final, last = rc.forward_tiles_plain(*fargs)
+    p = tile * tile
+    gen = torch.Generator(dev).manual_seed(n_feats)
+    g_out = torch.randn((n_tiles, n_feats, p), device=dev, generator=gen)
+    g_alpha = torch.randn((n_tiles, 1, p), device=dev, generator=gen)
+    args = (payload, starts, counts, g_out, g_alpha, t_final, last,
+            *fargs[3:])
+    before = rc.LAUNCHES["backward_tiles"]
+    got = rc.backward_tiles(*args, pack_grads=pack)
+    assert rc.LAUNCHES["backward_tiles"] == before + 1
+    assert torch.equal(got, rc.backward_tiles(*args, pack_grads=pack))
+    want = rc.backward_tiles_plain(*args, pack_grads=pack)
+    if pack:
+        rep = chip_smoke.compare_backward(got, want, n_feats)
+        assert rep["elements"] > 1000
+    else:
+        # compare_backward's element bound, on float32 rows
+        row_max = want.abs().amax(dim=1, keepdim=True)
+        mag = torch.maximum(got.abs(), want.abs())
+        bound = chip_smoke.BWD_REL * mag + chip_smoke.BWD_ATOL * row_max
+        assert not bool(((got - want).abs() > bound).any())
+    # nothing past a tile's deepest contributor, nor outside the tiles
+    ml = last.reshape(n_tiles, p).amax(dim=1)
+    assert int(ml[9]) < 8 and int(ml[8]) >= 256
+    written = (got.view(torch.int32) != 0).any(dim=0)
+    col = torch.arange(payload.shape[1], device=dev)
+    tile_of = torch.searchsorted(starts.long(), col, right=True) - 1
+    inside = (tile_of >= 0) & (tile_of < n_tiles)
+    t_c = tile_of.clamp(0, n_tiles - 1)
+    live = inside & (col - starts.long()[t_c] <= ml[t_c])
+    assert not bool((written & ~live).any())
+
+
+@pytest.mark.cuda
+def test_tile_kernels_refuse_misaligned_inputs(dev):
+    """backward_tiles reads four pixels as one 16-byte word: a 4-byte
+    offset view is refused, not misread."""
+    fargs = _tile_case(dev, 16, 7, [40, 3], seed=0)
+    _, t_final, last = rc.forward_tiles_plain(*fargs)
+    g = torch.zeros(2 * 7 * 256 + 1, device=dev)[1:].view(2, 7, 256)
+    g_alpha = torch.zeros_like(t_final)
+    with pytest.raises(ValueError, match="g_out"):
+        rc.backward_tiles(*fargs[:3], g, g_alpha, t_final, last,
+                          *fargs[3:])
