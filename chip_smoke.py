@@ -54,7 +54,8 @@ Phases (any failure raises and the script exits non-zero):
 6. Each kernel against its plain PyTorch version, on the card, at the
    inputs the main path gives it (serving: camera 0; training: one more
    step after the timed ones, the cotangents those of the real loss;
-   forward_tiles both in serving and in that training step):
+   expand_segments and forward_tiles both in serving and in that training
+   step, where the expansion covers the audited pair capacity):
    expand_segments bit-equal with int32 and float32 rows; forward_tiles
    image / t_final within 1e-4 (image: of its max) on every pixel whose
    `last` agrees (see `compare_forward`); backward_tiles decoded within
@@ -337,11 +338,21 @@ def pair_totals(params, alive, cams, cfg):
             for cam in cams]
 
 
-def check_expand(rc, args, entry, name, scene, gpu):
-    """Kernel vs plain, int32 and float32 rows; returns the report."""
+def expand_entry(rc, n_segments: int):
+    """The wrapper the expansion of `n_segments` goes through: the streamed
+    entry above 2^18 segments, as `rc.expand_segments` routes it."""
+    return (rc.expand_segments_stream if n_segments + 1 > (1 << 18)
+            else rc.expand_segments)
+
+
+def check_expand(rc, args, scene, gpu):
+    """Kernel vs plain, int32 and float32 rows, through the entry the main
+    path took; returns the report."""
     import torch
 
     vals, starts, out_len = args
+    entry = expand_entry(rc, vals.shape[1])
+    name = entry.__name__
     rows = {"int32": vals, "float32": vals.float() * 0.5 + 0.25}
     for kind, v in rows.items():
         k = entry(v, starts, out_len, out_dtype=v.dtype)
@@ -430,10 +441,9 @@ def run_scene(name, n, shift, extent, capacity, seed, dev, gpu, tmp):
                 ("expand_segments", "expand_segments_stream",
                  "forward_tiles")}
     frames = 1 + len(cams)  # one warm-up render, then one per camera
-    stream = n + 1 > (1 << 18)
-    want = {"expand_segments": 0 if stream else frames,
-            "expand_segments_stream": frames if stream else 0,
+    want = {"expand_segments": 0, "expand_segments_stream": 0,
             "forward_tiles": frames}
+    want[expand_entry(rc, n).__name__] = frames
     if launches != want:
         raise AssertionError(f"[{name}] launches {launches}, expected {want}")
     for k, v in metrics.items():
@@ -470,9 +480,7 @@ def run_scene(name, n, shift, extent, capacity, seed, dev, gpu, tmp):
                               wraps=rc.forward_tiles) as fwd:
         get_outputs(params, alive_l, cams[0], ModelConfig(), cfg,
                     sh_degree=3, background=bg)
-    entry = rc.expand_segments_stream if stream else rc.expand_segments
-    reports = [check_expand(rc, expand.call_args.args, entry,
-                            entry.__name__, name, gpu),
+    reports = [check_expand(rc, expand.call_args.args, name, gpu),
                check_forward(rc, fwd.call_args.args, name, gpu)]
     for rep in reports:
         rep["launches_per_frame"] = 1
@@ -1031,10 +1039,10 @@ def expected_step_launches(steps: int, capacity: int, reducer: str) -> dict:
 def run_training(label, inputs, dev, gpu, steps, expect_refinement,
                  train_cfg=None, reducer="reduce_segments_bykey"):
     """Train the scene through `Trainer.train` and check the run; then hold
-    the step's kernels (under the reduction by key: forward_tiles,
-    backward_tiles and the reduction; else the reduction) against their
-    plain versions at the inputs one more step gives them. Returns
-    (summary, reports, launches, trainer)."""
+    the step's kernels (under the reduction by key: the expansion,
+    forward_tiles, backward_tiles and the reduction; else the reduction)
+    against their plain versions at the inputs one more step gives them.
+    Returns (summary, reports, launches, trainer)."""
     import contextlib
 
     import torch
@@ -1089,8 +1097,10 @@ def run_training(label, inputs, dev, gpu, steps, expect_refinement,
                              f"{alive0}: no refinement event ran")
 
     # -- one more step, the kernels' inputs captured --
-    with mock.patch.object(rc, "forward_tiles",
-                           wraps=rc.forward_tiles) as fwd, \
+    with mock.patch.object(rc, "expand_segments",
+                           wraps=rc.expand_segments) as expand, \
+            mock.patch.object(rc, "forward_tiles",
+                              wraps=rc.forward_tiles) as fwd, \
             mock.patch.object(rc, "backward_tiles",
                               wraps=rc.backward_tiles) as bwd, \
             mock.patch.object(rc, reducer,
@@ -1107,7 +1117,8 @@ def run_training(label, inputs, dev, gpu, steps, expect_refinement,
         if live.call_count != 1:
             raise AssertionError("the training path did not compact the "
                                  "slab")
-        reports = [check_forward(rc, fwd.call_args.args, label, gpu),
+        reports = [check_expand(rc, expand.call_args.args, label, gpu),
+                   check_forward(rc, fwd.call_args.args, label, gpu),
                    check_backward(rc, bwd.call_args.args, label, gpu),
                    check_reduce(rc, red.call_args.args, label, gpu)]
     else:
@@ -1421,8 +1432,9 @@ def main() -> int:
     src = "dnsplatter_torch/csrc/"
     pallas = "dnsplatter_tpu/ops/rasterize_pallas.py"
     kinds = (
-        ("expand_segments", "100k", "expand_segments.cu", f"{pallas}:248"),
-        ("expand_segments_stream", "1m", "expand_segments.cu",
+        ("expand_segments", "train_100k", "expand_segments.cu",
+         f"{pallas}:248"),
+        ("expand_segments_stream", "train_1m", "expand_segments.cu",
          f"{pallas}:315"),
         ("forward_tiles", "1m", "forward_tiles.cu", f"{pallas}:527"),
         ("backward_tiles", "train_1m", "backward_tiles.cu",

@@ -667,8 +667,12 @@ def _reduce_bykey(cfg: RasterizeConfig, binned: _Binned, slab, last_t,
     # one order from run to run; dead slots carry the sentinel N and land
     # at the end, where the reduction never looks.
     keys_s, perm = torch.sort(keys, stable=True)
-    sorted_slab = torch.empty((ru + 1, keys_s.shape[0]), dtype=torch.int32,
-                              device=slab.device)
+    # Rows padded to a multiple of 4 words: the kernel then loads 16 bytes a
+    # thread.
+    length = keys_s.shape[0]
+    sorted_slab = torch.empty((ru + 1, -(-length // 4) * 4),
+                              dtype=torch.int32,
+                              device=slab.device)[:, :length]
     sorted_slab[:ru] = vals[:, perm]
     sorted_slab[ru] = keys_s
     return rc.reduce_segments_bykey(sorted_slab, ru, n)

@@ -46,7 +46,10 @@ _ENTRIES = {
     "reduce_segments_bykey": ("reduce_segments_bykey",
                               "dns_reduce_segments_bykey",
                               [_VP, ctypes.c_longlong, _I, _I, _I, _VP,
-                               ctypes.c_longlong, _VP]),
+                               ctypes.c_longlong, _I, _VP]),
+    "reduce_segments_bykey_resident": ("reduce_segments_bykey",
+                                       "dns_reduce_segments_bykey_resident",
+                                       [_I]),
     "reduce_segments_packed": ("reduce_segments_packed",
                                "dns_reduce_segments_packed",
                                [_VP, ctypes.c_longlong, _I, _VP, _I, _I, _VP,
@@ -148,8 +151,9 @@ def expand_segments(vals: torch.Tensor, starts: torch.Tensor, out_len: int,
 
     vals (R, N) int32 or float32, starts (N + 1,) int32 ascending. Above
     `resident_max` segments the call goes to `expand_segments_stream`, as
-    the Pallas entry does; on the card both launch the same kernel. Exact:
-    values are copied bit for bit (int32 at any magnitude).
+    the Pallas entry does; on the card both launch the same kernel (one CTA
+    per chunk of output positions, two searches a chunk). Exact: values are
+    copied bit for bit (int32 at any magnitude).
     """
     if vals.shape[1] + 1 > resident_max:
         return expand_segments_stream(vals, starts, out_len, out_dtype)
@@ -551,6 +555,33 @@ def reduce_segments_bykey_plain(slab: torch.Tensor, ru: int, n: int
     return out.index_add_(1, keys[ok], vals)
 
 
+def bykey_ids_per_cta(n: int, slots: int) -> int:
+    """Ids one CTA of the `reduce_segments_bykey` kernel owns: 512 while a
+    grid of 512-id blocks still fills every CTA slot of the card (`slots`:
+    SMs x the kernel's resident CTAs a SM), else 256. Each CTA pays two
+    searches and a pass over its output block whatever its lanes: many
+    waves of small blocks pay that more often (1M ids: 512), while one
+    under-filled wave of large blocks leaves SMs idle and walks more tiles
+    a CTA (127k ids: 256)."""
+    return 512 if -(-n // 512) >= slots else 256
+
+
+_BYKEY_SLOTS: Dict[Tuple[int, int], int] = {}
+
+
+def _bykey_slots(device: torch.device, ru: int) -> int:
+    """SMs x resident CTAs a SM of the kernel's RU instance, per device."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    key = (index, ru)
+    if key not in _BYKEY_SLOTS:
+        with torch.cuda.device(index):
+            resident = _entry("reduce_segments_bykey_resident")(ru)
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        _BYKEY_SLOTS[key] = sms * resident
+    return _BYKEY_SLOTS[key]
+
+
 def reduce_segments_bykey(slab: torch.Tensor, ru: int, n: int
                           ) -> torch.Tensor:
     """Per-Gaussian sums over a key-sorted packed slab
@@ -561,8 +592,11 @@ def reduce_segments_bykey(slab: torch.Tensor, ru: int, n: int
     decoded field sums per id, then sum |field 0| and sum |field 1|. Keys
     outside [0, n) are never summed; an id without lanes gives exact
     zeros. The Pallas function's coarse block bounds, chunk padding and
-    n_pad have no counterpart: each thread finds its own range in the key
-    row.
+    n_pad have no counterpart: each CTA of the kernel owns a block of ids
+    (`bykey_ids_per_cta`), finds their lanes with two searches of the key
+    row and sums them by a segmented scan in a fixed order. A row stride
+    that is a multiple of 4 words lets it load 16 bytes a thread
+    (`rasterize._reduce_bykey` pads it); any stride is right.
     """
     if not _route(slab, "reduce_segments_bykey"):
         return reduce_segments_bykey_plain(slab, ru, n)
@@ -577,9 +611,10 @@ def reduce_segments_bykey(slab: torch.Tensor, ru: int, n: int
         raise ValueError("reduce_segments_bykey: sizes must fit int32")
     out = torch.empty((2 * ru + 2, n), dtype=torch.float32,
                       device=slab.device)
+    ids = bykey_ids_per_cta(n, _bykey_slots(slab.device, ru))
     _check_rc(_entry("reduce_segments_bykey")(
         slab.data_ptr(), slab.stride(0), length, ru, n, out.data_ptr(),
-        out.stride(0), _stream()), "reduce_segments_bykey")
+        out.stride(0), ids, _stream()), "reduce_segments_bykey")
     LAUNCHES["reduce_segments_bykey"] += 1
     return out
 

@@ -316,6 +316,42 @@ def test_compaction_drops_no_contributing_pair():
                                    atol=1e-5, err_msg=name)
 
 
+@pytest.mark.parametrize("length", [4001, 4000, 3])
+def test_reduce_bykey_pads_the_slab_rows(length):
+    """`_reduce_bykey` hands the reduction a key-sorted slab whose row
+    stride is the length rounded up to a multiple of 4 words (the kernel's
+    16-byte loads); the sums are those of the plain reduction of the same
+    lanes, the sentinel lanes excluded."""
+    rng = np.random.default_rng(length)
+    n, ru = 700, 3
+    keys = torch.as_tensor(rng.integers(0, n + 1, length).astype(np.int32))
+    vals = torch.as_tensor(rng.normal(size=(2 * ru, length)).astype(
+        np.float32))
+    slab = torch.stack([rc.pack_bf16_2(vals[2 * i], vals[2 * i + 1])
+                        for i in range(ru)])
+    cfg = trz.RasterizeConfig(width=32, height=32, compact_frac=1.0)
+    binned = trz._Binned(order=None, pair_gauss=None, pair_orig=keys,
+                         starts=None, counts=None, gauss_starts=None,
+                         total_pairs=None)
+    seen = []
+    orig = rc.reduce_segments_bykey
+
+    def spy(sorted_slab, ru_, n_):
+        seen.append(sorted_slab)
+        return orig(sorted_slab, ru_, n_)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(rc, "reduce_segments_bykey", spy)
+        got = trz._reduce_bykey(cfg, binned, slab, None, ru, n)
+    (sorted_slab,) = seen
+    assert sorted_slab.shape == (ru + 1, length)
+    assert sorted_slab.stride() == (-(-length // 4) * 4, 1)
+    assert bool((sorted_slab[ru][1:] >= sorted_slab[ru][:-1]).all())
+    want = rc.reduce_segments_bykey_plain(
+        torch.cat([slab, keys[None]]), ru, n)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
 def _packed_slab(rows, n_feats):
     rows = list(rows) + [torch.zeros_like(rows[0])] * ((6 + n_feats) % 2)
     words = [rc.pack_bf16_2(rows[2 * i], rows[2 * i + 1])
@@ -499,3 +535,77 @@ def test_ab_script_reads_ptxas_reports():
     assert rep["registers"] == 95 and rep["resident_ctas"] == 10
     assert ab.resident_ctas(32, 13312, 256) == 8
     assert ab.resident_ctas(72, 21028, 128) == 7
+
+
+def test_ab_script_finds_every_kernel_instance():
+    """The A/B script's ptxas lookup for the expansion (no template) and
+    the reduction's RU = 7 instance: the id-block design's 512-id block
+    among fourteen, or the one-thread-per-id design's one instance per
+    RU."""
+    from dnsplatter_torch.scripts import ab_tile_kernels as ab
+
+    def entry(name, args, regs, smem):
+        return (f"ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_1"
+                f"{len(name)}{name}{args}EvPKixiiPfxb' for 'sm_90a'\n"
+                f"ptxas info    : Used {regs} registers, used 1 barriers, "
+                f"{smem} bytes smem, 400 bytes cmem[0]\n")
+
+    new = "".join(entry("reduce_bykey_kernel", f"ILi{ru}ELi{ids}EE",
+                        40 + ru + ids // 256, (2 * ru + 2) * ids * 4 + 56)
+                  for ru in range(1, 8) for ids in (256, 512))
+    old = "".join(entry("reduce_bykey_kernel", f"ILi{ru}EE", 30 + ru, 0)
+                  for ru in range(1, 8))
+    expand = ("ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_122"
+              "expand_segments_kernelEPKjPKiPjiiib' for 'sm_90a'\n"
+              "ptxas info    : Used 32 registers, used 1 barriers, 8232 bytes "
+              "smem, 400 bytes cmem[0]\n")
+    red = "reduce_segments_bykey"
+    for version, log, regs, smem in (("current", new, 49, 32824),
+                                     ("baseline", new, 49, 32824),
+                                     ("baseline", old, 37, 0)):
+        rep = ab._report(red, log, ab.THREADS[red], ab.TAGS[(version, red)])
+        assert (rep["registers"], rep["smem"]) == (regs, smem)
+    # 56 registers a thread, 4 warps a CTA: registers allow 9 CTAs, shared
+    # memory 6
+    rep = ab._report(red, new, 128, ab.TAGS[("current", red)])
+    assert rep["resident_ctas"] == 6
+    rep = ab._report("expand_segments", expand, 256,
+                     ab.TAGS[("current", "expand_segments")])
+    assert rep == {"registers": 32, "smem": 8232, "threads": 256,
+                   "resident_ctas": 8}
+    with pytest.raises(RuntimeError, match="expand_segments"):
+        ab._report("expand_segments", new, 256, ("E",))
+    assert set(ab.KERNELS) == set(ab.ENTRY_NAMES) == set(ab.THREADS)
+
+
+@pytest.mark.parametrize("n,slots,ids", [
+    (1_253_376, 528, 512),  # the 1M training state: 2,448 CTAs of 512
+    (126_976, 528, 256),  # the 100k state: 248 CTAs of 512 leave SMs idle
+    (269_825, 528, 512),  # 528 CTAs of 512, the last one short
+    (269_824, 528, 256),  # 527 CTAs of 512
+    (5, 528, 256),
+    (10_000_000, 1, 512)])
+def test_bykey_ids_per_cta(n, slots, ids):
+    """The reduction's block of ids: 512 while 512-id CTAs fill every slot
+    of the card, else 256."""
+    assert rc.bykey_ids_per_cta(n, slots) == ids
+
+
+def test_ab_script_tells_c_entries_apart():
+    """The A/B script reads a baseline C entry's parameter count, so a
+    one-thread-per-id `reduce_segments_bykey` source (no ids per CTA) is
+    called with its own argument list."""
+    from pathlib import Path
+
+    from dnsplatter_torch.scripts import ab_tile_kernels as ab
+
+    old = ('extern "C" int dns_reduce_segments_bykey(const void* slab, long '
+           'long stride,\n    int len, int ru, int n, void* out,\n    long '
+           'long out_stride, void* stream) {')
+    assert ab.c_entry_arity(old, "dns_reduce_segments_bykey") == len(
+        ab.BASELINE_ARGTYPES["reduce_segments_bykey"]) == 8
+    csrc = Path(rc.kernel_build.CSRC_DIR)
+    for name, (lib, sym, argtypes) in rc._ENTRIES.items():
+        if name in ab.KERNELS:
+            src = (csrc / f"{lib}.cu").read_text()
+            assert ab.c_entry_arity(src, sym) == len(argtypes), name

@@ -73,6 +73,82 @@ def test_expand_segments_kernel_bit_equal(dev, n_segments):
             assert rc.LAUNCHES[entry.__name__] == before + 1
 
 
+def _expand_both_entries(vals, starts, out_len):
+    """Both entries, int32 and float32 rows: bit-equal to the plain
+    version, each counted once a call."""
+    for entry, kw in ((rc.expand_segments, {"resident_max": 1 << 30}),
+                      (rc.expand_segments_stream, {})):
+        for v in (vals, vals.float() * 1e-3):
+            before = rc.LAUNCHES[entry.__name__]
+            k = entry(v, starts, out_len, out_dtype=v.dtype, **kw)
+            assert rc.LAUNCHES[entry.__name__] == before + 1
+            p = rc.expand_segments_plain(v, starts, out_len, out_dtype=v.dtype)
+            assert k.shape == p.shape == (vals.shape[0], out_len)
+            assert torch.equal(k.view(torch.int32), p.view(torch.int32))
+
+
+# Segment lengths and output length of each edge case, as (lengths, first
+# start, out_len - starts[N]). The kernel covers 2,048 positions a CTA.
+_EXPAND_CASES = {
+    # the ragged end: out_len % 4 != 0 (rows start unaligned)
+    "out_len_not_multiple_of_4": (np.full(3001, 3), 0, 6),
+    "first_start_above_0": (np.full(2000, 2), 5000, 11),
+    # overflow: the positions past the capacity are absent
+    "out_len_below_starts_n": (np.full(4000, 5), 7, -9001),
+    "one_segment_many_chunks": (np.array([3, 50_000, 2, 0, 7]), 1, 100),
+    # 100,000 empty segments between two chunks' worth of short ones: a
+    # window too wide to mark, searched instead
+    "empty_stretch": (np.concatenate([np.full(700, 3), np.zeros(100_000, int),
+                                      np.full(700, 2)]), 0, 64),
+    # runs of empty segments sharing starts[0] and starts[N]: outside the
+    # window
+    "leading_and_trailing_empties": (np.concatenate([
+        np.zeros(5000, int), np.full(1000, 3), np.zeros(300_000, int)]), 100,
+        50),
+    # the search path with positions before starts[0] and past starts[N]
+    "empty_stretch_after_first": (np.concatenate([
+        np.zeros(10, int), np.full(100, 2), np.zeros(50_000, int),
+        np.full(100, 2)]), 1000, 33),
+    # every segment edge on a chunk edge
+    "chunk_edges": (np.array([2048, 2048, 4096, 1024, 1024, 0, 2048]), 0,
+                    2048),
+    "all_before_start": (np.array([4, 4]), 9000, -5008),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(_EXPAND_CASES))
+@pytest.mark.parametrize("rows", [1, 4, 5, 10, 11])
+def test_expand_segments_kernel_edges(dev, case, rows):
+    """The chunked kernel's edges, bit-equal through both entries."""
+    lens, first, extra = _EXPAND_CASES[case]
+    starts_np = np.concatenate([[first], first + np.cumsum(lens)])
+    starts = torch.as_tensor(starts_np.astype(np.int32), device=dev)
+    out_len = int(starts_np[-1]) + extra
+    assert out_len > 0
+    rng = np.random.default_rng(rows)
+    vals = torch.as_tensor(
+        rng.integers(-2**31, 2**31 - 1, (rows, len(lens))).astype(np.int32),
+        device=dev)
+    _expand_both_entries(vals, starts, out_len)
+
+
+@pytest.mark.cuda
+def test_expand_segments_kernel_odd_shapes(dev):
+    """out_len of 1, 3 and one past a chunk; a single segment; an empty
+    value table; a row count that leaves only some rows aligned."""
+    rng = np.random.default_rng(5)
+    for n, out_len in ((1, 1), (1, 3), (7, 2049), (0, 10), (40, 4098)):
+        lens = rng.integers(0, 120, n)
+        starts = torch.as_tensor(
+            np.concatenate([[1], 1 + np.cumsum(lens)]).astype(np.int32),
+            device=dev)
+        vals = torch.as_tensor(
+            rng.integers(-2**31, 2**31 - 1, (3, n)).astype(np.int32),
+            device=dev)
+        _expand_both_entries(vals, starts, out_len)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("chunk", [32, 128])
 def test_forward_tiles_kernel_matches_plain(dev, chunk):
@@ -172,6 +248,109 @@ def test_reduce_segments_bykey_kernel_matches_plain(dev, scheme):
                          [3.0, 0.0, 12.0, 0.0, 0.0],
                          [3.0, 0.0, 12.0, 0.0, 0.0]], device=dev)
     assert torch.equal(out, want)
+
+
+def _bykey_case(rng, keys, ru, dev, pad, integer=False):
+    """A key-sorted slab for `keys`: ru rows of random bf16 pairs (normal,
+    or small integers, whose sums are exact in any order), the key row
+    last, the row stride padded to a multiple of 4 words or not."""
+    length = len(keys)
+    stride = -(-length // 4) * 4 if pad else length
+    buf = torch.zeros((ru + 1, stride), dtype=torch.int32, device=dev)
+    slab = buf[:, :length]
+    if integer:
+        v = torch.as_tensor(rng.integers(-8, 9, (2 * ru, length)).astype(
+            np.float32), device=dev)
+        slab[:ru] = torch.stack([rc.pack_bf16_2(v[2 * i], v[2 * i + 1])
+                                 for i in range(ru)])
+    else:
+        slab[:ru] = _random_packed(rng, ru, length, dev)
+    slab[ru] = torch.as_tensor(np.asarray(keys, dtype=np.int32), device=dev)
+    return slab
+
+
+def _check_bykey(slab, ru, n):
+    """compare_reduce against the plain version, two runs bit-equal, exact
+    zeros for every id without lanes."""
+    before = rc.LAUNCHES["reduce_segments_bykey"]
+    got = rc.reduce_segments_bykey(slab, ru, n)
+    assert rc.LAUNCHES["reduce_segments_bykey"] == before + 1
+    assert got.shape == (2 * ru + 2, n)
+    assert torch.equal(got, rc.reduce_segments_bykey(slab, ru, n))
+    want = rc.reduce_segments_bykey_plain(slab, ru, n)
+    chip_smoke.compare_reduce(got, want)
+    keys = slab[ru].long()
+    has = torch.zeros(n, dtype=torch.bool, device=slab.device)
+    has[keys[(keys >= 0) & (keys < n)]] = True
+    assert not bool(got[:, ~has].ne(0).any())
+    return got, want
+
+
+def _bykey_keys(case, rng):
+    """(keys, n) of each edge case. The kernel owns 256 ids a CTA and walks
+    their lanes 512 at a time."""
+    if case == "long_run":  # one id over 150,000 lanes, many tiles
+        return np.sort(np.concatenate([rng.integers(0, 900, 3000),
+                                       np.full(150_000, 300)])), 900
+    if case == "run_offsets":  # runs of 513 lanes start at every offset mod 512
+        return np.repeat(np.arange(600), 513), 600
+    if case == "missing_both_ends":  # keys from 1,000 up, the last 1,000 ids empty
+        return np.sort(rng.integers(1000, 9000, 20_001)), 10_000
+    if case == "all_sentinel":
+        return np.full(4099, 5000), 5000
+    if case == "sentinel_tail":  # compact_frac >= 1: a tail as long as n
+        return np.concatenate([np.sort(rng.integers(0, 3000, 7001)),
+                               np.full(3000, 3000)]), 3000
+    if case == "negative_keys":  # padding below 0 is never summed
+        return np.concatenate([np.full(37, -1), np.sort(
+            rng.integers(0, 500, 2000)), np.full(9, 500)]), 500
+    if case == "sparse":  # most ids without lanes, gaps across CTAs
+        return np.sort(rng.choice(200_000, 1501, replace=False)), 200_000
+    raise KeyError(case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["long_run", "run_offsets",
+                                  "missing_both_ends", "all_sentinel",
+                                  "sentinel_tail", "negative_keys", "sparse"])
+@pytest.mark.parametrize("pad", [True, False])
+@pytest.mark.parametrize("ids", [256, 512])
+def test_reduce_segments_bykey_kernel_edges(dev, case, pad, ids,
+                                            monkeypatch):
+    """The id-block kernel's edges at ru = 7 (the main path's), with the row
+    stride padded (16-byte loads) and not, in blocks of 256 and of 512 ids.
+    The fields are small integers, so every sum is exact in any order:
+    compare_reduce's tolerance, and bit-equal to the plain version as
+    well."""
+    monkeypatch.setattr(rc, "bykey_ids_per_cta", lambda n, slots: ids)
+    rng = np.random.default_rng(len(case))
+    keys, n = _bykey_keys(case, rng)
+    got, want = _check_bykey(
+        _bykey_case(rng, keys, 7, dev, pad, integer=True), 7, n)
+    assert torch.equal(got, want)
+    if case == "all_sentinel":
+        assert not bool(got.ne(0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ru", [1, 2, 3, 4, 5, 6, 7])
+def test_reduce_segments_bykey_kernel_every_ru(dev, ru):
+    """Every row count, on a length that is not a multiple of 4, runs of 1
+    to 40 lanes, gaps, and the sentinel tail."""
+    rng = np.random.default_rng(ru)
+    n = 7000
+    ids = np.sort(rng.choice(n, 2500, replace=False))
+    keys = np.repeat(ids, rng.integers(1, 40, ids.size))
+    tail = 1234 + (1 if (len(keys) + 1234) % 4 == 0 else 0)
+    keys = np.concatenate([keys, np.full(tail, n)])
+    assert len(keys) % 4 != 0
+    for pad in (True, False):
+        _check_bykey(_bykey_case(rng, keys, ru, dev, pad), ru, n)
+    # 7,000 ids make one partial wave: the wrapper takes 256; 512 too
+    assert rc.bykey_ids_per_cta(n, rc._bykey_slots(dev, ru)) == 256
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(rc, "bykey_ids_per_cta", lambda n, slots: 512)
+        _check_bykey(_bykey_case(rng, keys, ru, dev, True), ru, n)
 
 
 @pytest.mark.cuda
