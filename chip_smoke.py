@@ -63,8 +63,13 @@ Phases (any failure raises and the script exits non-zero):
    elements beyond one bf16 ulp, integer zeros where the plain version
    has them, two runs bit-equal (see `compare_backward`); the four
    reductions rtol 1e-5 / atol 1e-5 of the row's scale, exact zeros for
-   Gaussians without pairs, two runs bit-equal; cumsum_lanes_i32
-   bit-equal.
+   Gaussians without pairs, two runs bit-equal (`reduce_segments_bykey`
+   and `reduce_segments` own a block of ids a CTA and add by a segmented
+   scan in a fixed tree order, the packed two walk each range in lane
+   order); cumsum_lanes_i32 (one pass over 12,288-lane tiles with
+   decoupled look-back) bit-equal to the plain version and between two
+   runs, timed beside torch.cumsum along dim 1 (`library_ms`) and one
+   1-D torch.cumsum a row (`library_rowwise_ms`, a library device scan).
    Times: device time per call, from a batch of calls queued back to back
    behind a spin kernel between one pair of CUDA events (median of three
    batches), so the host's per-call cost is not in it. The bound is the
@@ -532,24 +537,20 @@ def check_exact_cull(params, alive, cam, cfg, bg) -> dict:
     return report
 
 
-def run_big_scene(dev, gpu):
-    """Path A: serve 2^24 Gaussians made on the card. `auto` resolves to
-    `tilekey` and binning builds its rows by prefix sum."""
+def make_big_scene(dev):
+    """The 2^24 scene, made on the card from a seed: (ground truth, the
+    served Gaussians, alive, the ring cameras, the serving
+    RasterizeConfig)."""
     import dataclasses
 
     import torch
 
-    from dnsplatter_torch.data.synthetic import render_batches, ring_cameras
-    from dnsplatter_torch.eval.evaluator import eval_raster_config, evaluate
-    from dnsplatter_torch.models.dn_model import ModelConfig, get_outputs
+    from dnsplatter_torch.data.synthetic import ring_cameras
+    from dnsplatter_torch.eval.evaluator import eval_raster_config
     from dnsplatter_torch.models.gaussians import GaussianParams
-    from dnsplatter_torch.ops import rasterize as rz
-    from dnsplatter_torch.ops import rasterize_cuda as rc
     from dnsplatter_torch.ops.sh import num_sh_bases, rgb_to_sh
 
     n, extent, shift, capacity, n_cams = BIG_SCENE
-    t0 = time.perf_counter()
-    torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(dev).manual_seed(24)
 
     def uniform(lo, hi, *shape):
@@ -569,7 +570,25 @@ def run_big_scene(dev, gpu):
     served = dataclasses.replace(gt, features_dc=gt.features_dc + 0.05)
     cams = ring_cameras(n_cams, width=WIDTH, img_height=HEIGHT, focal=700.0,
                         device=dev)
-    cfg = eval_raster_config(WIDTH, HEIGHT, capacity)
+    return gt, served, alive, cams, eval_raster_config(WIDTH, HEIGHT,
+                                                       capacity)
+
+
+def run_big_scene(dev, gpu):
+    """Path A: serve 2^24 Gaussians made on the card. `auto` resolves to
+    `tilekey` and binning builds its rows by prefix sum."""
+    import torch
+
+    from dnsplatter_torch.data.synthetic import render_batches
+    from dnsplatter_torch.eval.evaluator import evaluate
+    from dnsplatter_torch.models.dn_model import ModelConfig, get_outputs
+    from dnsplatter_torch.ops import rasterize as rz
+    from dnsplatter_torch.ops import rasterize_cuda as rc
+
+    n, extent, shift, capacity, n_cams = BIG_SCENE
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    gt, served, alive, cams, cfg = make_big_scene(dev)
     if rz._resolve_scheme(cfg, n)[0] != "tilekey":
         raise AssertionError("auto did not resolve to tilekey at 2^24")
     batches = render_batches(gt, alive, cams, lambda cam: cfg, sh_degree=3)
@@ -659,6 +678,11 @@ def check_cumsum(rc, table, scene, gpu):
     plain_ms = device_ms(lambda: rc.cumsum_lanes_i32_plain(table), 20)
     library_ms = device_ms(
         lambda: torch.cumsum(table, dim=1, dtype=torch.int32), 20)
+    # A second yardstick, timed only: one 1-D torch.cumsum a row, which
+    # runs a library device scan (torch.cumsum along dim 1 of a few long
+    # rows does not).
+    library_rowwise_ms = device_ms(lambda: [
+        torch.cumsum(row, 0, dtype=torch.int32) for row in table], 20)
     r, c = table.shape
     nbytes = 2 * r * c * 4
     ops = r * c
@@ -667,6 +691,7 @@ def check_cumsum(rc, table, scene, gpu):
     return {"scene": scene, "kernel": "cumsum_lanes_i32", "max_abs_err": 0.0,
             "runs_bit_equal": True, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "library": "torch.cumsum",
+            "library_rowwise_ms": library_rowwise_ms,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "bytes": nbytes, "ops": ops, "rows": r, "lanes": c,
@@ -836,10 +861,10 @@ def check_backward(rc, args, scene, gpu):
 
 def compare_reduce(got, want, kernel: str = "reduce_segments_bykey") -> dict:
     """A reduction kernel's output against its plain version's: rtol
-    REDUCE_TOL, atol REDUCE_TOL x the row's largest magnitude (the kernel
-    adds a Gaussian's lanes in lane order, index_add_ in any order), and
-    exact zeros where the plain version has them (Gaussians without
-    pairs)."""
+    REDUCE_TOL, atol REDUCE_TOL x the row's largest magnitude (each kernel
+    adds a Gaussian's lanes in one fixed order of its own, lane order or a
+    segmented scan's tree order, index_add_ in any order), and exact zeros
+    where the plain version has them (Gaussians without pairs)."""
     scale = want.abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
     diff = (got - want).abs()
     excess = diff - (REDUCE_TOL * want.abs() + REDUCE_TOL * scale)
@@ -1206,6 +1231,24 @@ def bykey_config(rcfg):
                                compact_frac=0.375)
 
 
+def step_with(trainer, rcfg):
+    """One `train_step` on the trainer's state, its RasterizeConfig
+    replaced by `rcfg`, at the trainer's next camera; returns the loss."""
+    from dnsplatter_torch.models.dn_model import sh_degree_to_use
+    from dnsplatter_torch.train.trainer import train_step
+
+    cam_i = trainer.step % len(trainer.data)
+    cam, batch = trainer.data.get(cam_i)
+    (trainer.params, trainer.adam, trainer.stats, loss, _) = train_step(
+        trainer.model_cfg, trainer.optim_cfg, rcfg,
+        sh_degree_to_use(trainer.step, trainer.model_cfg), trainer.params,
+        trainer.alive, trainer.adam, trainer.stats, cam,
+        trainer._device_batch(cam_i, batch), trainer.step,
+        generator=trainer.generator)
+    trainer.step += 1
+    return loss
+
+
 def run_step_path(label, trainer, rcfg, reducer, gpu, grad_atol=GRAD_ATOL):
     """Drive `train_step` on the trainer's state with its RasterizeConfig
     replaced by `rcfg`: PATH_STEPS timed steps after one warm-up, the
@@ -1214,27 +1257,15 @@ def run_step_path(label, trainer, rcfg, reducer, gpu, grad_atol=GRAD_ATOL):
     reduction by key under the same keys."""
     import torch
 
-    from dnsplatter_torch.models.dn_model import sh_degree_to_use
     from dnsplatter_torch.models.gaussians import FIELDS
     from dnsplatter_torch.ops import rasterize_cuda as rc
-    from dnsplatter_torch.train.trainer import train_step
 
     grads = compare_frame_grads(
         label, frame_grads(trainer, rcfg, 0),
         frame_grads(trainer, bykey_config(rcfg), 0), atol=grad_atol)
-    n_frames = len(trainer.data)
 
     def one_step():
-        cam_i = trainer.step % n_frames
-        cam, batch = trainer.data.get(cam_i)
-        (trainer.params, trainer.adam, trainer.stats, loss, _) = train_step(
-            trainer.model_cfg, trainer.optim_cfg, rcfg,
-            sh_degree_to_use(trainer.step, trainer.model_cfg),
-            trainer.params, trainer.alive, trainer.adam, trainer.stats, cam,
-            trainer._device_batch(cam_i, batch), trainer.step,
-            generator=trainer.generator)
-        trainer.step += 1
-        return loss
+        return step_with(trainer, rcfg)
 
     ms, losses, launches = timed_steps(one_step, 1, PATH_STEPS,
                                        STEP_KERNELS + REDUCERS)

@@ -63,7 +63,8 @@ _ENTRIES = {
                         [_VP, ctypes.c_longlong, _I, _VP, _I, _I, _VP,
                          ctypes.c_longlong, _VP]),
     "cumsum_lanes_i32": ("cumsum_lanes_i32", "dns_cumsum_lanes_i32",
-                         [_VP, _VP, _VP, _I, _I, ctypes.c_longlong, _VP]),
+                         [_VP, _VP, _VP, ctypes.c_longlong, _I,
+                          ctypes.c_longlong, _VP]),
 }
 _FNS: Dict[str, ctypes._CFuncPtr] = {}
 
@@ -761,8 +762,12 @@ def reduce_segments(grads: torch.Tensor, starts: torch.Tensor, n: int
     starts[g+1]]).
 
     grads (GW, C) float32 with 1 <= GW <= 16, starts (N + 1,) int32
-    ascending. Returns (GW, n); exact zeros for an empty range. Each range
-    is added in lane order, so the result is the same from run to run.
+    ascending. Returns (GW, n); exact zeros for an empty range. Each CTA
+    of the kernel owns a block of 128 ids and sums their lanes by a
+    segmented scan in one fixed order (not lane order), so the result is
+    the same from run to run. A 16-byte aligned slab with a row stride
+    that is a multiple of 4 words lets it load 16 bytes a thread; any
+    stride is right.
     """
     if not _route(grads, "reduce_segments"):
         return reduce_segments_plain(grads, starts, n)
@@ -772,7 +777,7 @@ def reduce_segments(grads: torch.Tensor, starts: torch.Tensor, n: int
                          f"(1..{GW}, C) float32 tensor")
     _check_boundaries("reduce_segments", starts, (n + 1,), grads)
     gw, length = grads.shape
-    if length >= 2**31:
+    if length >= 2**31 - 2048:
         raise ValueError("reduce_segments: sizes must fit int32")
     out = torch.empty((gw, n), dtype=torch.float32, device=grads.device)
     _check_rc(_entry("reduce_segments")(
@@ -786,8 +791,19 @@ def reduce_segments(grads: torch.Tensor, starts: torch.Tensor, n: int
 # cumsum_lanes_i32 (rasterize_pallas.py:117)
 # ---------------------------------------------------------------------------
 
-# lanes per block of csrc/cumsum_lanes_i32.cu (kThreads * kItems)
-_CUMSUM_TILE = 2048
+# lanes per tile of csrc/cumsum_lanes_i32.cu (12 strips of 256 threads x 4)
+CUMSUM_TILE = 12288
+
+
+def cumsum_scratch_words(rows: int, c: int, aligned: bool,
+                         tile: int = CUMSUM_TILE) -> int:
+    """64-bit scratch words the `cumsum_lanes_i32` kernel needs: its tile
+    counter, then one status word per tile of each row (`tile` lanes a
+    tile). `aligned`: every row starts on a 16-byte boundary (the table
+    16-byte aligned and c % 4 == 0); otherwise a row is tiled from the
+    boundary below its start and needs up to 3 lanes more."""
+    tiles = -(-(c + (0 if aligned else 3)) // tile)
+    return 1 + rows * tiles
 
 
 def cumsum_lanes_i32_plain(x: torch.Tensor) -> torch.Tensor:
@@ -799,7 +815,8 @@ def cumsum_lanes_i32(x: torch.Tensor) -> torch.Tensor:
     """Inclusive int32 prefix sum along the last axis of an (R, C) table
     (rasterize_pallas.py:117). Integer adds: exact at any magnitude,
     wrapping like int32 (the Pallas kernel, a float32 matrix product, is
-    exact only below 2^24)."""
+    exact only below 2^24). One pass over 12,288-lane tiles with decoupled
+    look-back; the scratch it needs is zeroed on the stream first."""
     if not _route(x, "cumsum_lanes_i32"):
         return cumsum_lanes_i32_plain(x)
     if x.dtype != torch.int32 or x.ndim != 2 or not x.is_contiguous():
@@ -809,10 +826,14 @@ def cumsum_lanes_i32(x: torch.Tensor) -> torch.Tensor:
     if r > 65535:
         raise ValueError("cumsum_lanes_i32: at most 65535 rows")
     out = torch.empty_like(x)
-    tiles = -(-c // _CUMSUM_TILE)
-    totals = torch.empty((r, tiles), dtype=torch.int32, device=x.device)
+    aligned = x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0 \
+        and c % 4 == 0
+    words = cumsum_scratch_words(r, c, aligned)
+    if words - 1 >= 2**31:
+        raise ValueError("cumsum_lanes_i32: more than 2^31 tiles")
+    scratch = torch.zeros(words, dtype=torch.int64, device=x.device)
     _check_rc(_entry("cumsum_lanes_i32")(
-        x.data_ptr(), out.data_ptr(), totals.data_ptr(), tiles, r, c,
+        x.data_ptr(), out.data_ptr(), scratch.data_ptr(), words, r, c,
         _stream()), "cumsum_lanes_i32")
     LAUNCHES["cumsum_lanes_i32"] += 1
     return out

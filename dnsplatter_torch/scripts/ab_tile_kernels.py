@@ -2,29 +2,41 @@
 the GPU, in turns, at the inputs of the main path.
 
     python -m dnsplatter_torch.scripts.ab_tile_kernels --baseline DIR \
-        [--kernels expand_segments reduce_segments_bykey]
+        [--kernels expand_segments reduce_segments_bykey ...] \
+        [--cumsum-tile LANES]
 
 DIR holds an earlier design's sources of the kernels named (default: the
-two tile kernels, `expand_segments` and `reduce_segments_bykey`), for
-example a parent commit's `dnsplatter_torch/csrc`, unpacked with `git
-archive`: the same C entries as the current ones (`rasterize_cuda._ENTRIES`
-types both), or, for `reduce_segments_bykey`, the entry of the design
-with one thread per id, which takes no ids per CTA (told apart by its
-parameter count). Both versions are compiled with nvcc and the flags of
-`kernel_build`; each ptxas report (registers, shared memory) and the
-resident CTAs per SM it allows are printed. The current version is called
-through its wrappers (the backward's time includes the tile order the
-wrapper sorts), the baseline through the same allocation and arguments.
+two tile kernels, `expand_segments` and `reduce_segments_bykey`; also
+`cumsum_lanes_i32` and `reduce_segments`), for example a parent commit's
+`dnsplatter_torch/csrc`, unpacked with `git archive`: the same C entries
+as the current ones (`rasterize_cuda._ENTRIES` types both), or an earlier
+entry of `BASELINE_ARGTYPES`, told apart by its parameter list (the
+one-thread-per-id reduction by key takes no ids per CTA; the three-kernel
+prefix sum takes a table of tile totals). DIR may as well hold a variant
+of the current design, to time a choice (a tile or block size): a
+look-back prefix sum with other tiles than the current one's names their
+lanes with `--cumsum-tile`, which sizes its scratch. Both versions are
+compiled with nvcc and the flags of `kernel_build`; each ptxas report
+(registers, shared memory) and the resident CTAs per SM it allows are
+printed. The current version is called through its wrappers (the
+backward's time includes the tile order the wrapper sorts, the prefix
+sum's the zeroing of its scratch), the baseline through the same
+allocation and arguments.
 Inputs are captured from chip_smoke.py's scenes: a served frame (camera 0)
-at 100k and 1M Gaussians (the expansion and the forward), and one training
+at 100k and 1M Gaussians (the expansion and the forward), one training
 step (after `--train-steps` steps of `Trainer.train` at the Trainer's
-defaults) at 100k and 1M seeds (all four). At each, every kernel is timed
-baseline, current, current, baseline (chip_smoke's `device_ms`: device time
-per call from a batch behind a spin kernel), and the two versions' outputs
-are compared (forward: bit-equal or not, pixels whose `last` differs, the
-largest image difference; backward: chip_smoke's `compare_backward`;
-expansion: bit-equal; reduction: `compare_reduce` and bit-equal or not).
-Prints one JSON line per (scene, kernel). Runs only on the card.
+defaults) at 100k and 1M seeds (all four), a served frame of the 2^24
+scene (the prefix sum's table) and a `segsum` step on the 100k state after
+chip_smoke's 63 steps with refinement (the float32 slab of
+`reduce_segments`). At each, every kernel is timed baseline, current,
+current, baseline (chip_smoke's `device_ms`: device time per call from a
+batch behind a spin kernel). The two versions' outputs are compared
+(forward: bit-equal or not, pixels whose `last` differs, the largest
+image difference; backward: chip_smoke's `compare_backward`; expansion
+and prefix sum: bit-equal, the prefix sum to its plain version too;
+reductions: `compare_reduce`, bit-equal or not, and two runs of the
+current version bit-equal). Prints one JSON line per (scene, kernel).
+Runs only on the card.
 """
 
 from __future__ import annotations
@@ -41,17 +53,26 @@ from pathlib import Path
 from unittest import mock
 
 KERNELS = ("forward_tiles", "backward_tiles", "expand_segments",
-           "reduce_segments_bykey")
+           "reduce_segments_bykey", "cumsum_lanes_i32", "reduce_segments")
+# the kernels of a default training step (the default set), and of a
+# served frame
+STEP_KERNELS = KERNELS[:4]
+SERVE_KERNELS = ("forward_tiles", "expand_segments")
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# Earlier C entries that the current ones extend: {kernel: argument types}.
+# Earlier C entries that the current ones replace: {kernel: argument types}.
 BASELINE_ARGTYPES = {
+    # one thread per id, no ids per CTA
     "reduce_segments_bykey": [_VP, _LL, _I, _I, _I, _VP, _LL, _VP],
+    # three kernels: (x, out, totals, totals_per_row, rows, c, stream)
+    "cumsum_lanes_i32": [_VP, _VP, _VP, _I, _I, _LL, _VP],
 }
 # The CUDA function of each kernel, as it appears in the mangled names.
 ENTRY_NAMES = {"forward_tiles": "forward_tiles_kernel",
                "backward_tiles": "backward_tiles_kernel",
                "expand_segments": "expand_segments_kernel",
-               "reduce_segments_bykey": "reduce_bykey_kernel"}
+               "reduce_segments_bykey": "reduce_bykey_kernel",
+               "cumsum_lanes_i32": "scan_tiles",
+               "reduce_segments": "reduce_segments_kernel"}
 # H100: per SM 65,536 registers (allocated 256 a warp), 2,048 threads,
 # 32 CTAs, 228 KB of shared memory with 1 KB reserved per CTA.
 SM_REGS, SM_THREADS, SM_CTAS = 65536, 2048, 32
@@ -99,16 +120,24 @@ def _compile(src: Path, out: Path) -> str:
     return res.stdout + res.stderr
 
 
-def c_entry_arity(src: str, symbol: str) -> int:
-    """The number of parameters of C entry `symbol` in source text `src`."""
+def c_entry_params(src: str, symbol: str) -> tuple:
+    """The parameter types of C entry `symbol` in source text `src`, names
+    dropped and spaces normalised: ("const void*", "long long", ...)."""
     m = re.search(rf"\b{symbol}\s*\(([^)]*)\)", src)
     if m is None:
         raise RuntimeError(f"no C entry {symbol} in the baseline source")
-    return len(m.group(1).split(","))
+    types = []
+    for param in m.group(1).split(","):
+        words = param.replace("*", "* ").split()
+        types.append(" ".join(words[:-1]).replace(" *", "*"))
+    return tuple(types)
 
 
-def _call_baseline(fn, name: str, a):
-    """The baseline's C entry on the wrapper's outputs and arguments."""
+
+def _call_baseline(fn, name: str, a, cumsum_tile: int):
+    """The baseline's C entry on the wrapper's outputs and arguments
+    (`cumsum_tile`: lanes per tile of a baseline prefix sum with the
+    current entry, which sizes its scratch)."""
     import torch
 
     from dnsplatter_torch.ops import rasterize_cuda as rc
@@ -126,10 +155,30 @@ def _call_baseline(fn, name: str, a):
         out = torch.empty((2 * ru + 2, n), device=slab.device)
         args = [slab.data_ptr(), slab.stride(0), slab.shape[1], ru, n,
                 out.data_ptr(), out.stride(0)]
-        if len(fn.argtypes) == len(rc._ENTRIES[name][2]):  # chooses ids
+        if fn.argtypes == rc._ENTRIES[name][2]:  # chooses ids
             args.append(rc.bykey_ids_per_cta(
                 n, rc._bykey_slots(slab.device, ru)))
         rc._check_rc(fn(*args, rc._stream()), name)
+        return out
+    if name == "reduce_segments":
+        grads, starts, n = a
+        gw = grads.shape[0]
+        out = torch.empty((gw, n), device=grads.device)
+        rc._check_rc(fn(grads.data_ptr(), grads.stride(0), grads.shape[1],
+                        starts.data_ptr(), gw, n, out.data_ptr(),
+                        out.stride(0), rc._stream()), name)
+        return out
+    if name == "cumsum_lanes_i32":
+        (x,) = a
+        if fn.argtypes == rc._ENTRIES[name][2]:
+            return _call_cumsum_entry(fn, x, cumsum_tile)
+        rows, c = x.shape
+        out = torch.empty_like(x)
+        tiles = -(-c // 2048)
+        totals = torch.empty((rows, tiles), dtype=torch.int32,
+                             device=x.device)
+        rc._check_rc(fn(x.data_ptr(), out.data_ptr(), totals.data_ptr(),
+                        tiles, rows, c, rc._stream()), name)
         return out
     payload, starts, counts = a[:3]
     dev = payload.device
@@ -155,6 +204,23 @@ def _call_baseline(fn, name: str, a):
     return slab
 
 
+def _call_cumsum_entry(fn, x, tile: int):
+    """A prefix-sum C entry of the current signature, with the wrapper's
+    allocation for tiles of `tile` lanes."""
+    import torch
+
+    from dnsplatter_torch.ops import rasterize_cuda as rc
+
+    rows, c = x.shape
+    out = torch.empty_like(x)
+    words = rc.cumsum_scratch_words(rows, c, x.data_ptr() % 16 == 0
+                                    and c % 4 == 0, tile)
+    scratch = torch.zeros(words, dtype=torch.int64, device=x.device)
+    rc._check_rc(fn(x.data_ptr(), out.data_ptr(), scratch.data_ptr(), words,
+                    rows, c, rc._stream()), "cumsum_lanes_i32")
+    return out
+
+
 def _call_current(name: str, a):
     from dnsplatter_torch.ops import rasterize_cuda as rc
 
@@ -171,6 +237,7 @@ def _agreement(name: str, base, cur, a) -> dict:
     import torch
 
     import chip_smoke as cs
+    from dnsplatter_torch.ops import rasterize_cuda as rc
 
     if name == "forward_tiles":
         return {"bit_equal": all(torch.equal(x, y) for x, y in zip(base, cur)),
@@ -180,21 +247,29 @@ def _agreement(name: str, base, cur, a) -> dict:
         agree = cs.compare_backward(cur, base, a[8])
         agree.pop("row_max")
         return agree
-    if name == "expand_segments":
+    if name in ("expand_segments", "cumsum_lanes_i32"):
         if not torch.equal(base, cur):
-            raise AssertionError(f"expand_segments: {int((base != cur).sum())}"
-                                 " words differ between the versions")
+            raise AssertionError(f"{name}: {int((base != cur).sum())} words "
+                                 "differ between the versions")
+        if name == "cumsum_lanes_i32" and not torch.equal(
+                cur, rc.cumsum_lanes_i32_plain(*a)):
+            raise AssertionError("cumsum_lanes_i32 differs from its plain "
+                                 "version")
         return {"bit_equal": True}
-    return {**cs.compare_reduce(cur, base), "bit_equal": torch.equal(base,
-                                                                      cur)}
+    if not torch.equal(cur, _call_current(name, a)):
+        raise AssertionError(f"{name}: two runs of the current version "
+                             "differ")
+    return {**cs.compare_reduce(cur, base, name),
+            "bit_equal": torch.equal(base, cur), "runs_bit_equal": True}
 
 
 # The mangled template arguments of the instance the main path runs, the
 # first of each tuple that the ptxas report holds: the tile kernels at tile
 # 16 and F = 7 (the backward packed, at four pixels a thread), the
-# reduction at RU = 7 (in the id-block design its 512-id block, the 1M
-# step's; the design with one thread per id has one instance per RU); the
-# expansion is no template.
+# reduction by key at RU = 7 (in the id-block design its 512-id block, the
+# 1M step's; the design with one thread per id has one instance per RU),
+# `reduce_segments` at GW = 15 (the 100k segsum step); the
+# expansion and the prefix sum's scan are no templates.
 TAGS = {("baseline", "forward_tiles"): ("ILi7EE",),
         ("baseline", "backward_tiles"): ("ILi7ELb1ELi4EE",),
         ("baseline", "expand_segments"): ("E",),
@@ -202,13 +277,19 @@ TAGS = {("baseline", "forward_tiles"): ("ILi7EE",),
         ("current", "forward_tiles"): ("ILi7EE",),
         ("current", "backward_tiles"): ("ILi7ELb1ELi4EE",),
         ("current", "expand_segments"): ("E",),
-        ("current", "reduce_segments_bykey"): ("ILi7ELi512EE",)}
+        ("current", "reduce_segments_bykey"): ("ILi7ELi512EE",),
+        ("baseline", "cumsum_lanes_i32"): ("E",),
+        ("current", "cumsum_lanes_i32"): ("E",),
+        ("baseline", "reduce_segments"): ("ILi15EE",),
+        ("current", "reduce_segments"): ("ILi15EE",)}
 # Threads per CTA of those instances, for the residency figure (the
 # current designs'; a baseline of the same design has the same).
 THREADS = {"forward_tiles": 256, "backward_tiles": 64,
-           "expand_segments": 256, "reduce_segments_bykey": 128}
+           "expand_segments": 256, "reduce_segments_bykey": 128,
+           "cumsum_lanes_i32": 256, "reduce_segments": 128}
 REPS = {"forward_tiles": 50, "backward_tiles": 20, "expand_segments": 50,
-        "reduce_segments_bykey": 20}
+        "reduce_segments_bykey": 20, "cumsum_lanes_i32": 20,
+        "reduce_segments": 20}
 
 
 def _report(name: str, log: str, threads: int, tags) -> dict:
@@ -225,9 +306,13 @@ def _report(name: str, log: str, threads: int, tags) -> dict:
     raise RuntimeError(f"no {tags} entry of {name} in the ptxas report")
 
 
-def capture(dev, train_steps: int):
-    """[(scene, {kernel: args})] for the four scenes: a served frame's
-    expansion and forward, a training step's four kernels."""
+def capture(dev, train_steps: int, kernels):
+    """[(scene, {kernel: args})] for the scenes the kernels named run on:
+    a served frame's expansion and forward (100k, 1m), a training step's
+    four kernels (100k, 1m), the 2^24 frame's prefix sum, the 100k segsum
+    step's reduction."""
+    import dataclasses
+
     import torch
 
     import chip_smoke as cs
@@ -242,25 +327,58 @@ def capture(dev, train_steps: int):
             rc, k, wraps=getattr(rc, k))) for k in names}
         return stack, mocks
 
-    out = []
-    for seed, (name, n, shift, extent, cap) in enumerate(cs.SCENES):
-        _, served, alive, cams = cs.make_scene(n, shift, extent, seed, dev)
-        cfg = eval_raster_config(cs.WIDTH, cs.HEIGHT, cap)
-        stack, mocks = spies(("expand_segments", "forward_tiles"))
+    def served_frame(served, alive, cam, cfg, names):
+        stack, mocks = spies(names)
         with torch.no_grad(), stack:
-            get_outputs(served, alive, cams[0], ModelConfig(), cfg,
-                        sh_degree=3, background=torch.zeros(3, device=dev))
-        out.append((name, {k: m.call_args.args for k, m in mocks.items()}))
-    for seed, (name, n, shift, extent, cap) in enumerate(cs.SCENES):
-        inputs = cs.training_inputs(n, shift, extent, cap, seed, dev, {})
+            get_outputs(served, alive, cam, ModelConfig(), cfg, sh_degree=3,
+                        background=torch.zeros(3, device=dev))
+        return {k: m.call_args.args for k, m in mocks.items()}
+
+    out = []
+    if set(kernels) & set(SERVE_KERNELS):
+        for seed, (name, n, shift, extent, cap) in enumerate(cs.SCENES):
+            _, served, alive, cams = cs.make_scene(n, shift, extent, seed,
+                                                   dev)
+            out.append((name, served_frame(
+                served, alive, cams[0],
+                eval_raster_config(cs.WIDTH, cs.HEIGHT, cap),
+                SERVE_KERNELS)))
+    if set(kernels) & set(STEP_KERNELS):
+        for seed, (name, n, shift, extent, cap) in enumerate(cs.SCENES):
+            inputs = cs.training_inputs(n, shift, extent, cap, seed, dev, {})
+            with contextlib.redirect_stdout(sys.stderr):
+                trainer = Trainer(inputs["data"], inputs["seeds"],
+                                  model_cfg=inputs["model_cfg"])
+                trainer.train(train_steps, log_every=1 << 30)
+                stack, mocks = spies(STEP_KERNELS)
+                with stack:
+                    trainer.train(1, log_every=1 << 30)
+            out.append((f"train_{name}",
+                        {k: m.call_args.args for k, m in mocks.items()}))
+            del trainer, inputs
+            torch.cuda.empty_cache()
+    if "cumsum_lanes_i32" in kernels:
+        _, served, alive, cams, cfg = cs.make_big_scene(dev)
+        out.append(("2p24", served_frame(served, alive, cams[0], cfg,
+                                         ("cumsum_lanes_i32",))))
+        del served, alive
+        torch.cuda.empty_cache()
+    if "reduce_segments" in kernels:
+        name, n, shift, extent, cap = cs.SCENES[0]
+        inputs = cs.training_inputs(n, shift, extent, cap, 0, dev,
+                                    cs.REFINE_KW)
         with contextlib.redirect_stdout(sys.stderr):
             trainer = Trainer(inputs["data"], inputs["seeds"],
                               model_cfg=inputs["model_cfg"])
-            trainer.train(train_steps, log_every=1 << 30)
-            stack, mocks = spies(KERNELS)
-            with stack:
-                trainer.train(1, log_every=1 << 30)
-        out.append((f"train_{name}",
+            trainer.train(cs.TRAIN_WARMUP + cs.TRAIN_STEPS_100K,
+                          log_every=1 << 30)
+        rcfg = dataclasses.replace(trainer._raster_cfg(inputs["cams"][0]),
+                                   sort_scheme="packed",
+                                   grad_reduce="segsum")
+        stack, mocks = spies(("reduce_segments",))
+        with stack:
+            cs.step_with(trainer, rcfg)
+        out.append((f"train_{name}_segsum",
                     {k: m.call_args.args for k, m in mocks.items()}))
         del trainer, inputs
         torch.cuda.empty_cache()
@@ -274,14 +392,25 @@ def _size(name: str, a) -> dict:
                 "out_len": int(a[2]), "used": int(a[1][-1])}
     if name == "reduce_segments_bykey":
         return {"lanes": int(a[0].shape[1]), "ids": int(a[2]), "ru": a[1]}
+    if name == "cumsum_lanes_i32":
+        return {"rows": int(a[0].shape[0]), "lanes": int(a[0].shape[1])}
+    if name == "reduce_segments":
+        grads, starts, n = a
+        return {"gw": int(grads.shape[0]), "slab_lanes": int(grads.shape[1]),
+                "lanes": int(starts[-1] - starts[0]), "ids": n}
     return {"pairs": int(a[1][a[3 if name == "forward_tiles" else 7]])}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", type=Path, required=True)
-    ap.add_argument("--kernels", nargs="+", choices=KERNELS, default=KERNELS)
+    ap.add_argument("--kernels", nargs="+", choices=KERNELS,
+                    default=STEP_KERNELS)
     ap.add_argument("--train-steps", type=int, default=23)
+    ap.add_argument("--cumsum-tile", type=int, default=None,
+                    help="lanes per tile of a baseline look-back prefix "
+                    "sum (its scratch holds a status word a tile; default "
+                    "the current kernel's)")
     args = ap.parse_args(argv)
 
     import torch
@@ -293,6 +422,8 @@ def main(argv=None) -> int:
     from dnsplatter_torch.ops import kernel_build
     from dnsplatter_torch.ops import rasterize_cuda as rc
 
+    if args.cumsum_tile is None:
+        args.cumsum_tile = rc.CUMSUM_TILE
     gpu = cs.gpu_name_and_power()
     print(gpu, flush=True)
     build = kernel_build.BUILD_DIR / "ab"
@@ -306,8 +437,11 @@ def main(argv=None) -> int:
                                                TAGS[(version, name)])
             if version == "baseline":
                 _, sym, argtypes = rc._ENTRIES[name]
-                arity = c_entry_arity((root / f"{name}.cu").read_text(), sym)
-                if arity != len(argtypes):
+                params = c_entry_params((root / f"{name}.cu").read_text(),
+                                        sym)
+                if params != c_entry_params(
+                        (kernel_build.CSRC_DIR / f"{name}.cu").read_text(),
+                        sym):
                     argtypes = BASELINE_ARGTYPES[name]
                 fn = getattr(ctypes.CDLL(str(lib_path)), sym)
                 fn.argtypes = argtypes
@@ -320,11 +454,11 @@ def main(argv=None) -> int:
     def call(version, name, a):
         if version == "current":
             return _call_current(name, a)
-        return _call_baseline(fns[name], name, a)
+        return _call_baseline(fns[name], name, a, args.cumsum_tile)
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    scenes = capture(dev, args.train_steps)
+    scenes = capture(dev, args.train_steps, args.kernels)
     print(json.dumps({"capture_seconds": time.perf_counter() - t0}),
           flush=True)
     for scene, calls in scenes:

@@ -592,7 +592,7 @@ def test_bykey_ids_per_cta(n, slots, ids):
 
 
 def test_ab_script_tells_c_entries_apart():
-    """The A/B script reads a baseline C entry's parameter count, so a
+    """The A/B script reads a baseline C entry's parameter list, so a
     one-thread-per-id `reduce_segments_bykey` source (no ids per CTA) is
     called with its own argument list."""
     from pathlib import Path
@@ -602,10 +602,10 @@ def test_ab_script_tells_c_entries_apart():
     old = ('extern "C" int dns_reduce_segments_bykey(const void* slab, long '
            'long stride,\n    int len, int ru, int n, void* out,\n    long '
            'long out_stride, void* stream) {')
-    assert ab.c_entry_arity(old, "dns_reduce_segments_bykey") == len(
+    assert len(ab.c_entry_params(old, "dns_reduce_segments_bykey")) == len(
         ab.BASELINE_ARGTYPES["reduce_segments_bykey"]) == 8
     csrc = Path(rc.kernel_build.CSRC_DIR)
     for name, (lib, sym, argtypes) in rc._ENTRIES.items():
         if name in ab.KERNELS:
             src = (csrc / f"{lib}.cu").read_text()
-            assert ab.c_entry_arity(src, sym) == len(argtypes), name
+            assert len(ab.c_entry_params(src, sym)) == len(argtypes), name

@@ -387,30 +387,76 @@ def _random_packed(rng, pr, length, dev):
                         for i in range(pr)])
 
 
+def _check_cumsum(x):
+    """Bit-equal to the plain version, two runs bit-equal, one launch a
+    call."""
+    before = rc.LAUNCHES["cumsum_lanes_i32"]
+    got = rc.cumsum_lanes_i32(x)
+    assert rc.LAUNCHES["cumsum_lanes_i32"] == before + 1
+    assert torch.equal(got, rc.cumsum_lanes_i32_plain(x))
+    assert torch.equal(got, rc.cumsum_lanes_i32(x))
+    assert rc.LAUNCHES["cumsum_lanes_i32"] == before + 2
+    return got
+
+
+T = rc.CUMSUM_TILE
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(4, 1000), (5, 2048), (3, 1_000_003)])
-def test_cumsum_lanes_i32_kernel_bit_equal(dev, shape):
+@pytest.mark.parametrize("rows", [1, 4, 5])
+@pytest.mark.parametrize("lanes", [
+    1, 2, 3, 1000, 2048,  # inside one tile; C % 4 in {1, 2, 3}: rows misaligned
+    T - 1, T, T + 1, T + 2, 2 * T + 1,  # around the tile's edges
+    1_000_003,
+    1000 * T + 7,  # over 1,000 tiles a row: the look-back reaches far
+])
+def test_cumsum_lanes_i32_kernel_bit_equal(dev, rows, lanes):
     """Integer adds: bit-equal to torch.cumsum at any magnitude, the int32
-    wrap included; one block, exactly one tile, and many tiles with a
-    ragged end."""
-    rng = np.random.default_rng(shape[1])
-    for lo, hi in ((-50, 60), (1 << 26, 1 << 28)):
-        x = torch.as_tensor(rng.integers(lo, hi, shape).astype(np.int32),
-                            device=dev)
-        before = rc.LAUNCHES["cumsum_lanes_i32"]
-        got = rc.cumsum_lanes_i32(x)
-        assert rc.LAUNCHES["cumsum_lanes_i32"] == before + 1
-        assert torch.equal(got, rc.cumsum_lanes_i32_plain(x))
+    wrap included (values over the whole int32 range), a row of zeros, rows
+    that start off a 16-byte boundary (C % 4 != 0: the kernel's scalar
+    heads and tails), small values too; two runs bit-equal."""
+    rng = np.random.default_rng(rows * lanes)
+    big = rng.integers(-2**31, 2**31, (rows, lanes), dtype=np.int64)
+    x = torch.as_tensor(big.astype(np.int32), device=dev)
+    if rows > 1:
+        x[rows // 2] = 0
+    got = _check_cumsum(x)
+    if rows > 1:
+        assert not bool(got[rows // 2].ne(0).any())
+    _check_cumsum(torch.as_tensor(
+        rng.integers(-50, 60, (rows, lanes)).astype(np.int32), device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [4 * T, 3 * T + 2])
+def test_cumsum_lanes_i32_kernel_unaligned_table(dev, lanes):
+    """A contiguous table that starts 4 bytes past a 16-byte boundary (a
+    view into a larger buffer): its 16-byte words do not line up with the
+    output's, so the kernel takes every word singly; still bit-equal. The
+    wrapper refuses what the kernel does not take."""
+    rng = np.random.default_rng(lanes)
+    buf = torch.as_tensor(rng.integers(-2**31, 2**31, 3 * lanes + 1,
+                                       dtype=np.int64).astype(np.int32),
+                          device=dev)
+    x = buf[1:].view(3, lanes)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4
+    _check_cumsum(x)
     with pytest.raises(ValueError, match="contiguous"):
         rc.cumsum_lanes_i32(x.t())
+    with pytest.raises(ValueError, match="contiguous"):
+        rc.cumsum_lanes_i32(x.float())
+    with pytest.raises(ValueError, match="65535"):
+        rc.cumsum_lanes_i32(torch.zeros((65536, 1), dtype=torch.int32,
+                                        device=dev))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("gw", [16, 15, 3])
 def test_reduce_segments_kernel_matches_plain(dev, gw):
-    """rtol 1e-5 / atol 1e-5 of the row's scale (the kernel adds a range in
-    lane order, index_add_ in any order), exact zeros for empty ranges, two
-    runs bit-equal; lanes past starts[N] hold 1e9 and are never read."""
+    """rtol 1e-5 / atol 1e-5 of the row's scale (the kernel adds a range by
+    a segmented scan in a fixed tree order, index_add_ in any order), exact
+    zeros for empty ranges, two runs bit-equal; lanes past starts[N] hold
+    1e9 and are never read."""
     rng = np.random.default_rng(gw)
     n = 5000
     starts = _random_ranges(rng, n, dev)
@@ -428,6 +474,105 @@ def test_reduce_segments_kernel_matches_plain(dev, gw):
         rc.reduce_segments(grads.int(), starts, n)
     with pytest.raises(ValueError, match="boundaries"):
         rc.reduce_segments(grads, starts[:-1], n)
+    with pytest.raises(ValueError, match="grads"):
+        rc.reduce_segments(torch.zeros((17, 8), device=dev), starts, n)
+
+
+def _segment_lens(case, rng):
+    """(lengths of the N ranges, first boundary) of each edge case. The
+    kernel owns 128 ids a CTA and walks their lanes 512 at a time."""
+    if case == "long_ranges":  # 2,304 and 100,000 lanes, many tiles each
+        lens = rng.integers(0, 40, 1500)
+        lens[100], lens[700] = 2304, 100_000
+        return lens, 3
+    if case == "run_offsets":  # 513 lanes: runs start at every offset mod 512
+        return np.full(600, 513), 5
+    if case == "empty_ends_and_block":
+        # empty ids at both ends, and ids 2,000-2,999 empty: whole CTAs
+        # without lanes; n not a multiple of 128
+        lens = rng.integers(0, 13, 5001)
+        lens[:300] = lens[-300:] = lens[2000:3000] = 0
+        return lens, 37
+    if case == "all_empty":
+        return np.zeros(777, np.int64), 6
+    if case == "one_id":
+        return np.array([5000]), 1
+    raise KeyError(case)
+
+
+def _segments_case(rng, lens, first, gw, dev, pad, integer=True):
+    """grads (gw, C) over ranges of `lens` from lane `first`: small integers
+    (every sum exact in any order) or normal values; the lanes before
+    starts[0] and from starts[N] on hold 1e9 and NaN; the row stride
+    padded to a multiple of 4 words or left odd."""
+    starts = np.concatenate([[first], first + np.cumsum(lens)])
+    length = int(starts[-1]) + 11
+    stride = -(-length // 4) * 4 if pad else length | 1
+    buf = torch.zeros((gw, stride), device=dev)
+    grads = buf[:, :length]
+    vals = (rng.integers(-8, 9, (gw, length)) if integer
+            else rng.normal(size=(gw, length)))
+    grads.copy_(torch.as_tensor(vals.astype(np.float32), device=dev))
+    grads[:, :first] = float("nan")
+    grads[:, int(starts[-1])::2] = 1e9
+    grads[:, int(starts[-1]) + 1::2] = float("nan")
+    return grads, torch.as_tensor(starts.astype(np.int32), device=dev)
+
+
+def _check_segments(grads, starts, n):
+    """compare_reduce against the plain version, two runs bit-equal, exact
+    zeros for every empty range, one launch a call."""
+    before = rc.LAUNCHES["reduce_segments"]
+    got = rc.reduce_segments(grads, starts, n)
+    assert rc.LAUNCHES["reduce_segments"] == before + 1
+    assert got.shape == (grads.shape[0], n)
+    assert torch.equal(got, rc.reduce_segments(grads, starts, n))
+    want = rc.reduce_segments_plain(grads, starts, n)
+    chip_smoke.compare_reduce(got, want, "reduce_segments")
+    empty = starts[1:] == starts[:-1]
+    assert not bool(got[:, empty].ne(0).any())
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["long_ranges", "run_offsets",
+                                  "empty_ends_and_block", "all_empty",
+                                  "one_id"])
+@pytest.mark.parametrize("pad", [True, False])
+def test_reduce_segments_kernel_edges(dev, case, pad):
+    """The id-block kernel's edges at GW = 15 (the main path's), with the
+    row stride padded (16-byte loads) and not, starts[0] > 0. The fields are small integers, so every sum is
+    exact in any order: compare_reduce's tolerance, and bit-equal to the
+    plain version as well. NaN and 1e9 outside [starts[0], starts[N])
+    never reach a sum."""
+    rng = np.random.default_rng(len(case))
+    lens, first = _segment_lens(case, rng)
+    grads, starts = _segments_case(rng, lens, first, 15, dev, pad)
+    got, want = _check_segments(grads, starts, len(lens))
+    assert torch.equal(got, want)
+    assert bool(torch.isfinite(got).all())
+    if case == "all_empty":
+        assert not bool(got.ne(0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gw", list(range(1, 17)))
+def test_reduce_segments_kernel_every_gw(dev, gw):
+    """Every row count, on ranges of 0 to 40 lanes with a 2,304-lane one,
+    n not a multiple of the block: integer fields bit-equal to the plain
+    version, normal ones within compare_reduce, with the stride padded and
+    not."""
+    rng = np.random.default_rng(gw)
+    lens = rng.integers(0, 41, 7001)
+    lens[rng.uniform(size=lens.size) < 0.3] = 0
+    lens[4321] = 2304
+    n = lens.size
+    for pad in (True, False):
+        got, want = _check_segments(
+            *_segments_case(rng, lens, 9, gw, dev, pad), n)
+        assert torch.equal(got, want)
+        _check_segments(*_segments_case(rng, lens, 2, gw, dev, pad,
+                                        integer=False), n)
 
 
 @pytest.mark.cuda

@@ -3,8 +3,12 @@ package: the plain versions of `reduce_segments_packed`,
 `reduce_segments_packed_multi`, `reduce_segments` and `cumsum_lanes_i32`
 held to the Pallas kernels (interpreter) on the same numpy-seeded inputs,
 and the autograd function under the configurations that reach them held to
-`jax.grad` of the JAX pallas backend.
+`jax.grad` of the JAX pallas backend; the kernel wrappers' arguments and
+refusals through fake C entries, and the A/B script's knowledge of the
+two kernels' C entries.
 """
+
+import collections
 
 import jax.numpy as jnp
 import numpy as np
@@ -260,3 +264,194 @@ def test_compare_reduce_names_its_kernel():
     with pytest.raises(AssertionError, match="reduce_segments_packed "):
         chip_smoke.compare_reduce(want * 1.01, want,
                                   "reduce_segments_packed")
+
+
+def test_reduce_segments_plain_matches_pallas_heavy_tail():
+    """The main path's row count (GW = 15) over a heavy-tailed set of
+    ranges, one of them a Gaussian over many tiles (2,304 lanes), against
+    the Pallas kernel by chip_smoke's `compare_reduce`: rtol 1e-5, atol
+    1e-5 of the row's largest magnitude (another summation order over
+    2,304 terms that cancel); lanes past starts[N] hold 1e9 and NaN and
+    are never read."""
+    rng = np.random.default_rng(15)
+    n = 40
+    lens = rng.integers(0, 9, n)
+    lens[3] = 0
+    lens[17] = 2304
+    starts = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    length = int(starts[-1]) + 40
+    grads = rng.normal(size=(15, length)).astype(np.float32)
+    grads[:, starts[-1]::2] = 1e9
+    grads[:, starts[-1] + 1::2] = np.nan
+    padded = np.concatenate([grads[:, :starts[-1]],
+                             np.zeros((15, 512), np.float32)], axis=1)
+    want = np.asarray(rp.reduce_segments(jnp.asarray(padded),
+                                         jnp.asarray(starts), n))[:, :n]
+    got = rc.reduce_segments(torch.as_tensor(grads), torch.as_tensor(starts),
+                             n)
+    chip_smoke.compare_reduce(got, torch.as_tensor(want), "reduce_segments")
+    assert bool((got[:, 3] == 0.0).all()) and bool(torch.isfinite(got).all())
+    assert rc.LAUNCHES["reduce_segments"] == 0
+
+
+@pytest.mark.parametrize("rows,c,aligned,words", [
+    (4, 12_582_912, True, 1 + 4 * 1024),  # the serve-2p24 table
+    (4, 12_582_912, False, 1 + 4 * 1025),
+    (1, 1, True, 2),
+    (1, 1, False, 2),
+    (3, 12_285, False, 1 + 3),  # 12,285 + 3 lanes fill one tile exactly
+    (3, 12_286, False, 1 + 3 * 2),
+    (5, 12_289, True, 1 + 5 * 2),
+])
+def test_cumsum_scratch_words(rows, c, aligned, words):
+    """The prefix sum's scratch: its tile counter, then one status word per
+    12,288-lane tile of each row; a row that may start off a 16-byte
+    boundary is tiled from the boundary below and needs 3 lanes more."""
+    assert rc.CUMSUM_TILE == 12288
+    assert rc.cumsum_scratch_words(rows, c, aligned) == words
+
+
+@pytest.mark.parametrize("tile,words", [(4096, 1 + 4 * 3072),
+                                        (8192, 1 + 4 * 1536),
+                                        (16384, 1 + 4 * 768)])
+def test_cumsum_scratch_words_other_tiles(tile, words):
+    """The scratch of a variant prefix sum with other tiles (the A/B
+    script's `--cumsum-tile`), at the serve-2p24 table."""
+    assert rc.cumsum_scratch_words(4, 12_582_912, True, tile) == words
+
+
+class _FakeEntry:
+    """Stands in for a kernel's C entry: records the arguments, returns 0."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.fixture
+def card_route(monkeypatch):
+    """The wrappers' checks and arguments on the CPU: every tensor routed to
+    the kernel, whose C entries are fakes."""
+    fakes = collections.defaultdict(_FakeEntry)
+    monkeypatch.setattr(rc, "_route", lambda t, what: True)
+    monkeypatch.setattr(rc, "_entry", lambda name: fakes[name])
+    monkeypatch.setattr(rc, "_stream", lambda: 0)
+    monkeypatch.setattr(rc, "LAUNCHES", collections.Counter())
+    return fakes
+
+
+def test_cumsum_wrapper_arguments_and_refusals(card_route):
+    """cumsum_lanes_i32 sizes its zeroed scratch by `cumsum_scratch_words`,
+    launches once, and refuses a table the kernel does not take."""
+    fakes = card_route
+    x = torch.arange(4 * 4097, dtype=torch.int32).reshape(4, 4097)
+    rc.cumsum_lanes_i32(x)
+    (args,) = fakes["cumsum_lanes_i32"].calls
+    assert args[0] == x.data_ptr()
+    assert args[3:] == (rc.cumsum_scratch_words(4, 4097, False), 4, 4097, 0)
+    assert rc.LAUNCHES["cumsum_lanes_i32"] == 1
+    for bad, match in ((x.t(), "contiguous"), (x.float(), "int32"),
+                       (x[None], "int32"),
+                       (torch.zeros((65536, 1), dtype=torch.int32), "65535")):
+        with pytest.raises(ValueError, match=match):
+            rc.cumsum_lanes_i32(bad)
+    assert rc.LAUNCHES["cumsum_lanes_i32"] == 1
+
+
+def test_reduce_segments_wrapper_arguments_and_refusals(card_route):
+    """reduce_segments passes the slab's stride and length, GW and n,
+    launches once, and refuses a slab or boundaries the kernel does not
+    take."""
+    fakes = card_route
+    n = 126_976  # the train-100k state
+    grads = torch.zeros((15, 64))
+    starts = torch.zeros(n + 1, dtype=torch.int32)
+    rc.reduce_segments(grads, starts, n)
+    (args,) = fakes["reduce_segments"].calls
+    assert args[1:3] == (64, 64) and args[4:6] == (15, n)
+    assert args[3] == starts.data_ptr() and args[8] == 0
+    assert rc.LAUNCHES["reduce_segments"] == 1
+    for g, s, match in (
+            (torch.zeros((17, 64)), starts, "grads"),  # GW > 16
+            (torch.zeros((0, 64)), starts, "grads"),
+            (grads.int(), starts, "grads"),
+            (torch.zeros((64, 15)).t(), starts, "grads"),  # not row-contiguous
+            (grads, starts[:-1], "boundaries"),
+            (grads, starts.long(), "boundaries"),
+            (grads, starts.view(1, -1), "boundaries"),
+            (grads, torch.zeros(2 * n + 2, dtype=torch.int32)[::2],
+             "boundaries")):
+        with pytest.raises(ValueError, match=match):
+            rc.reduce_segments(g, s, n)
+    assert rc.LAUNCHES["reduce_segments"] == 1
+
+
+def test_ab_script_knows_the_prefix_sum_and_segment_reduction():
+    """ab_tile_kernels.py's entries for the two kernels: every current C
+    entry's parameter types match the wrapper's ctypes; the earlier
+    three-kernel prefix sum's entry matches BASELINE_ARGTYPES and differs
+    from the current one, while the one-thread-per-id reduction's is the
+    current one's (the redesign kept its arguments); the ptxas lookup
+    finds the scan and the GW = 15 reduction instance."""
+    from pathlib import Path
+
+    from dnsplatter_torch.scripts import ab_tile_kernels as ab
+
+    ctype = {"const void*": ab._VP, "void*": ab._VP, "int": ab._I,
+             "long long": ab._LL}
+    csrc = Path(rc.kernel_build.CSRC_DIR)
+    for name, (lib, sym, argtypes) in rc._ENTRIES.items():
+        params = ab.c_entry_params((csrc / f"{lib}.cu").read_text(), sym)
+        assert [ctype[p] for p in params] == argtypes, name
+    old = {
+        "cumsum_lanes_i32": (
+            'extern "C" int dns_cumsum_lanes_i32(const void* x, void* out, '
+            'void* totals,\n    int totals_per_row, int rows, long long c,\n'
+            '    void* stream) {'),
+        "reduce_segments": (
+            'extern "C" int dns_reduce_segments(const void* grads, long long '
+            'stride, int len,\n    const void* starts, int gw, int n, void* '
+            'out,\n    long long out_stride, void* stream) {'),
+    }
+    params = {name: (ab.c_entry_params(src, rc._ENTRIES[name][1]),
+                     ab.c_entry_params((csrc / f"{name}.cu").read_text(),
+                                       rc._ENTRIES[name][1]))
+              for name, src in old.items()}
+    old_scan, new_scan = params["cumsum_lanes_i32"]
+    assert [ctype[p] for p in old_scan] == ab.BASELINE_ARGTYPES[
+        "cumsum_lanes_i32"]
+    assert old_scan != new_scan
+    old_reduce, new_reduce = params["reduce_segments"]
+    assert old_reduce == new_reduce
+    assert "reduce_segments" not in ab.BASELINE_ARGTYPES
+
+    def entry(mangled, regs, smem):
+        return (f"ptxas info    : Compiling entry function '{mangled}' for "
+                f"'sm_90a'\nptxas info    : Used {regs} registers, used 1 "
+                f"barriers, {smem} bytes smem, 400 bytes cmem[0]\n")
+
+    scan = (entry("_ZN12_GLOBAL__N_112add_offsetsEPjPKjixi", 30, 128)
+            + entry("_ZN12_GLOBAL__N_110scan_tilesEPKjPjPyxixb", 32, 144))
+    rep = ab._report("cumsum_lanes_i32", scan, 256,
+                     ab.TAGS[("current", "cumsum_lanes_i32")])
+    assert rep == {"registers": 32, "smem": 144, "threads": 256,
+                   "resident_ctas": 8}
+    red = "".join(entry(f"_ZN12_GLOBAL__N_122reduce_segments_kernelILi{gw}"
+                        "EEEvPKfxiPKiiPfxb", 40 + gw, gw * 512 + 716)
+                  for gw in range(1, 17))
+    rep = ab._report("reduce_segments", red, ab.THREADS["reduce_segments"],
+                     ab.TAGS[("current", "reduce_segments")])
+    assert (rep["registers"], rep["smem"]) == (55, 8396)
+    legacy = "".join(entry(f"_ZN12_GLOBAL__N_122reduce_segments_kernelILi{gw}"
+                           "EEEvPKfxiPKiiPfx", 30 + gw, 0)
+                     for gw in range(1, 17))
+    rep = ab._report("reduce_segments", legacy, 128,
+                     ab.TAGS[("baseline", "reduce_segments")])
+    assert (rep["registers"], rep["smem"]) == (45, 0)
+    assert set(ab.KERNELS) == set(ab.ENTRY_NAMES) == set(ab.THREADS) == set(
+        ab.REPS)
+    assert all((v, k) in ab.TAGS for v in ("baseline", "current")
+               for k in ab.KERNELS)
