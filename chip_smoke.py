@@ -15,8 +15,9 @@ Phases (any failure raises and the script exits non-zero):
    scene's perturbed Gaussians go through a checkpoint in the JAX
    package's npz format, `load_checkpoint_arrays` and `evaluate` over four
    ring cameras, with every launch counter set to 0 just before and read
-   just after. Metrics must be finite (LPIPS is not ported and reports
-   NaN), every camera's pair list must fit the capacity, and each kernel
+   just after. Metrics must be finite, LPIPS among them (the seeded random
+   VGG, `lpips_kind` "random-vgg(relative-only)", where no weights file is
+   found), every camera's pair list must fit the capacity, and each kernel
    of the path must have launched once per rendered frame. The 100k scene
    is rendered once more with `exact_cull`: the same image within 1e-5
    from fewer listed pairs.
@@ -79,9 +80,28 @@ Phases (any failure raises and the script exits non-zero):
    forward, and the gradients of the autograd function (rtol 2e-2 / atol
    2e-3 of each array's largest magnitude) under depthq and packed keys;
    under `segsum`, which rounds nothing to bf16, rtol 1e-4 / atol 1e-5.
+8. File-backed MuSHRoom: twelve ring views of the 1M scene, rendered by
+   the port at 1024x576 and written as a MuSHRoom iphone capture (images,
+   16-bit depth, transformations.json; ten in the long capture with a
+   test.txt naming two, two in the short one; no normals, masks or seed
+   cloud). `get_parser("mushroom")` at the parser's defaults (1,000,000
+   seed points) with confidence masks and both protocols parses the train
+   and test splits, making the normals, the consistency masks and the seed
+   cloud. `Trainer` on the train split with depth and normal losses: 3
+   warm-up steps, then 10 timed ones with the counters set to 0 just before
+   and read just after, the four kernels of the step once each a step.
+   `evaluate` of the test split with the default LPIPS, point clouds from
+   the rendered depths against the seed cloud with ICP, and the with /
+   within protocols, counted the same way (the expansion and forward_tiles
+   once a frame plus one warm-up); every metric finite, `within_*`,
+   `with_*` and `pd_*` present. LPIPS of one frame on the card against the
+   same module on the CPU within 1e-4 relative. Its JSON line carries the
+   parse, frame-load and ICP seconds, the step times, the eval time per
+   frame with LPIPS and with a stub in its place, and the pair capacity.
 
-Prints one JSON line per kernel and scene, one per scene, a `kernels`
-line, the card's name and power limit, and last
+Prints one JSON line per kernel and scene, one per scene (the MuSHRoom
+path's among them), a `kernels` line whose launch counts sum the main
+paths of phases 2-5 and 8, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Needs CUDA: without it, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
@@ -142,6 +162,13 @@ TRAIN_STEPS_100K = 60
 REFINE_KW = dict(warmup_length=10, refine_every=10, reset_alpha_every=3)
 MAX_LAST_FLIPS = 20  # pixels per frame that may stop one splat apart
 CUTOFF_REL = 1e-3  # how near 1e-4 such a pixel's transmittance must end
+# The file-backed MuSHRoom capture: ring views of the 1m scene, rendered by
+# the port and written in the dataset's layout (long capture, test.txt
+# naming two of its frames, short capture).
+MUSHROOM_LONG, MUSHROOM_SHORT, MUSHROOM_TEST = 10, 2, ("0002", "0007")
+MUSHROOM_STEPS = 10
+MUSHROOM_SEEDS = 1_000_000  # the parser's default, the dataset's own
+LPIPS_CPU_RTOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -452,11 +479,11 @@ def run_scene(name, n, shift, extent, capacity, seed, dev, gpu, tmp):
     if launches != want:
         raise AssertionError(f"[{name}] launches {launches}, expected {want}")
     for k, v in metrics.items():
-        if k.startswith("rgb_lpips") or k == "lpips_kind":
+        if k == "lpips_kind":
             continue
         if not (isinstance(v, (int, float)) and math.isfinite(v)):
             raise AssertionError(f"[{name}] metric {k} = {v}")
-    if metrics.get("lpips_kind") != "not_ported":
+    if metrics.get("lpips_kind") != "random-vgg(relative-only)":
         raise AssertionError(
             f"[{name}] lpips_kind {metrics.get('lpips_kind')}")
     totals = pair_totals(params, alive_l, cams, cfg)
@@ -501,7 +528,7 @@ def run_scene(name, n, shift, extent, capacity, seed, dev, gpu, tmp):
         "eval_fps": metrics["fps"], "psnr": metrics["rgb_psnr"],
         "ssim": metrics["rgb_ssim"], "depth_abs_rel":
             metrics["depth_abs_rel"], "normal_mae": metrics["normal_mae"],
-        "launches": launches, "gpu": gpu,
+        "lpips": metrics["rgb_lpips"], "launches": launches, "gpu": gpu,
     }
     return summary, reports, launches
 
@@ -1298,6 +1325,264 @@ def run_step_path(label, trainer, rcfg, reducer, gpu, grad_atol=GRAD_ATOL):
     return summary, [rep], launches
 
 
+def write_mushroom_capture(root: Path, dev, capacity: int) -> dict:
+    """A MuSHRoom iphone capture of the 1m scene at WIDTH x HEIGHT, rendered
+    by the port: images, 16-bit millimetre depth (0 where the accumulated
+    alpha is under 0.5), transformations.json, and a test.txt in the long
+    capture. No normals, masks or seed cloud: the parser makes them."""
+    import numpy as np
+    import torch
+
+    from dnsplatter_torch.data import io
+    from dnsplatter_torch.data.synthetic import ring_cameras
+    from dnsplatter_torch.eval.evaluator import eval_raster_config
+    from dnsplatter_torch.ops.render import render
+
+    _, n, shift, extent, _ = SCENES[1]
+    gt, _, alive, _ = make_scene(n, shift, extent, 1, dev)
+    cams = ring_cameras(MUSHROOM_LONG + MUSHROOM_SHORT, width=WIDTH,
+                        img_height=HEIGHT, focal=700.0, device=dev)
+    cfg = eval_raster_config(WIDTH, HEIGHT, capacity)
+    # every sixth view goes to the short capture
+    short = set(range(3, len(cams), 6))
+    long_ = [i for i in range(len(cams)) if i not in short]
+    coverage = []
+    for capture, idx in (("long_capture", long_),
+                         ("short_capture", sorted(short))):
+        cdir = root / "iphone" / capture
+        (cdir / "images").mkdir(parents=True)
+        (cdir / "depth").mkdir()
+        frames = []
+        for j, i in enumerate(idx):
+            with torch.no_grad():
+                out, _ = render(gt, alive, cams[i], cfg, sh_degree_to_use=3,
+                                background=torch.zeros(3, device=dev))
+            hit = out.accumulation > 0.5
+            coverage.append(float(hit.float().mean()))
+            depth = torch.where(hit, out.depth, 0.0)
+            io.write_image(cdir / "images" / f"{j:04d}.png",
+                           out.rgb.cpu().numpy())
+            io.write_depth_png(cdir / "depth" / f"{j:04d}.png",
+                               depth.cpu().numpy())
+            frames.append({"file_path": f"images/{j:04d}.png",
+                           "depth_file_path": f"depth/{j:04d}.png",
+                           "transform_matrix":
+                               cams[i].c2w.cpu().numpy().tolist()})
+        (cdir / "transformations.json").write_text(json.dumps(
+            {"fl_x": 700.0, "fl_y": 700.0, "cx": WIDTH / 2, "cy": HEIGHT / 2,
+             "w": WIDTH, "h": HEIGHT, "frames": frames}))
+    (root / "iphone" / "long_capture" / "test.txt").write_text(
+        "\n".join(MUSHROOM_TEST) + "\n")
+    if min(coverage) < 0.2:
+        raise AssertionError(f"the capture's views barely see the scene: "
+                             f"coverage {coverage}")
+    return {"frames_long": len(long_), "frames_short": len(short),
+            "min_coverage": min(coverage)}
+
+
+def run_mushroom(dev, gpu, tmp: Path):
+    """Phase 8: write a MuSHRoom capture, parse it with the parser's
+    defaults (1,000,000 seed points regenerated from the RGB-D frames,
+    normals and consistency masks made from the depth), train on it, and
+    evaluate its test split with LPIPS, point-cloud metrics after ICP and
+    the with / within protocols. Returns (summary, [], launches)."""
+    import contextlib
+    import copy
+
+    import numpy as np
+    import torch
+
+    from dnsplatter_torch.data.parsers import get_parser
+    from dnsplatter_torch.data.parsers.mushroom import MushroomParserConfig
+    from dnsplatter_torch.eval import icp as icp_mod
+    from dnsplatter_torch.eval import metrics as M
+    from dnsplatter_torch.eval.evaluator import eval_raster_config, evaluate
+    from dnsplatter_torch.models.dn_model import ModelConfig, get_outputs
+    from dnsplatter_torch.models.gaussians import FIELDS
+    from dnsplatter_torch.ops import rasterize_cuda as rc
+    from dnsplatter_torch.train.trainer import Trainer
+
+    capacity = SCENES[1][4]
+    t0 = time.perf_counter()
+    written = write_mushroom_capture(tmp, dev, capacity)
+    write_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    log(f"[mushroom] capture written: {write_s:.1f} s")
+
+    parse = get_parser("mushroom")
+    cfg = MushroomParserConfig(data=tmp, eval_mode="all",
+                               load_depth_confidence_masks=True)
+    if cfg.num_init_points != MUSHROOM_SEEDS:
+        raise AssertionError(f"num_init_points {cfg.num_init_points}")
+    t0 = time.perf_counter()
+    train_ds = parse(cfg, "train")
+    parse_train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    test_ds = parse(cfg, "test")
+    parse_test_s = time.perf_counter() - t0
+    made = {sub: len(list((tmp / "iphone" / "long_capture" / sub)
+                          .glob("*.png")))
+            for sub in ("normals_from_depth", "depth_normals_mask")}
+    n_train = MUSHROOM_LONG - len(MUSHROOM_TEST)
+    if (len(train_ds) != n_train
+            or len(test_ds) != len(MUSHROOM_TEST) + MUSHROOM_SHORT
+            or made != dict.fromkeys(made, MUSHROOM_LONG)
+            or not (tmp / "iphone_pointcloud.ply").exists()):
+        raise AssertionError(f"parsed {len(train_ds)} train / {len(test_ds)} "
+                             f"test frames, made {made}")
+    seeds = train_ds.seed()
+    if len(seeds) != 3 or seeds[0].shape != (cfg.num_init_points, 3):
+        raise AssertionError("the seed cloud is not 1,000,000 points with "
+                             "colours and normals")
+    t0 = time.perf_counter()
+    for i in range(len(train_ds)):
+        _, batch = train_ds.get(i)
+        if sorted(batch) != ["confidence", "image", "normal",
+                             "sensor_depth"]:
+            raise AssertionError(f"train frame {i} holds {sorted(batch)}")
+    load_s = time.perf_counter() - t0
+    log(f"[mushroom] parse: train {parse_train_s:.1f} s, test "
+        f"{parse_test_s:.1f} s, frame loads {load_s:.1f} s")
+
+    # -- train: the main path's four kernels, counted --
+    with contextlib.redirect_stdout(sys.stderr):
+        trainer = Trainer(train_ds, seeds, model_cfg=ModelConfig(
+            use_depth_loss=True, depth_lambda=0.2, use_normal_loss=True))
+    if trainer.params.means.device.type != dev.type:
+        raise AssertionError("Trainer did not default to the card")
+    # Seeds resampled with replacement repeat exactly: a 3-NN distance of
+    # 0 puts such a Gaussian at the init's 1e-7 scale floor.
+    unique_seeds = len(np.unique(seeds[0], axis=0))
+    live = trainer.alive > 0.5
+    at_floor = float((trainer.params.scales[live].amax(dim=1)
+                      < math.log(1e-6)).float().mean())
+
+    def one_step():
+        with contextlib.redirect_stdout(sys.stderr):
+            return trainer.train(1, log_every=1 << 30)[-1]["loss"]
+
+    ms, losses, launches = timed_steps(one_step, TRAIN_WARMUP,
+                                       MUSHROOM_STEPS,
+                                       STEP_KERNELS + REDUCERS)
+    want = expected_step_launches(MUSHROOM_STEPS, trainer.params.capacity,
+                                  "reduce_segments_bykey")
+    if launches != want or want["expand_segments_stream"] == 0:
+        raise AssertionError(f"[mushroom] launches {launches}, expected "
+                             f"{want}")
+    for f in FIELDS:
+        if not bool(torch.isfinite(getattr(trainer.params, f)).all()):
+            raise AssertionError(f"[mushroom] {f} is not finite")
+
+    # -- evaluate the test split: LPIPS, point cloud + ICP, protocols --
+    cam0, batch0 = test_ds.get(0)
+    rcfg = eval_raster_config(WIDTH, HEIGHT,
+                              trainer._raster_cfg(cam0).pair_capacity)
+    totals = pair_totals(trainer.params, trainer.alive,
+                         [test_ds.get(i)[0] for i in range(len(test_ds))],
+                         rcfg)
+    if max(totals) > rcfg.pair_capacity:
+        raise AssertionError(f"[mushroom] pair totals {totals} overflow "
+                             f"the audited capacity {rcfg.pair_capacity}")
+    M.default_lpips()  # built outside the timings
+    host_s = {"icp": [], "pd_metrics": []}
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            host_s[name].append(time.perf_counter() - t)
+            return out
+        return call
+
+    eval_names = ("expand_segments", "expand_segments_stream",
+                  "forward_tiles")
+    rc.LAUNCHES.clear()
+    with mock.patch.object(icp_mod, "icp", timed("icp", icp_mod.icp)), \
+            mock.patch.object(M, "pd_metrics",
+                              timed("pd_metrics", M.pd_metrics)):
+        metrics = evaluate(trainer.params, trainer.alive, test_ds,
+                           pair_capacity=rcfg.pair_capacity,
+                           extract_pointcloud=True,
+                           reference_points=train_ds.seed_points,
+                           run_icp_if_missing=True)
+    eval_launches = {k: rc.LAUNCHES[k] for k in eval_names}
+    frames = 1 + len(test_ds)  # one warm-up render, then one per frame
+    want = dict.fromkeys(eval_names, 0)
+    want["forward_tiles"] = frames
+    want[expand_entry(rc, trainer.params.capacity).__name__] = frames
+    if eval_launches != want:
+        raise AssertionError(f"[mushroom] eval launches {eval_launches}, "
+                             f"expected {want}")
+    if [len(v) for v in host_s.values()] != [1, 1]:
+        raise AssertionError(f"evaluate ran ICP / pd_metrics {host_s}")
+    for k, v in metrics.items():
+        if k == "lpips_kind":
+            continue
+        if not (isinstance(v, (int, float)) and math.isfinite(v)):
+            raise AssertionError(f"[mushroom] metric {k} = {v}")
+    if metrics["lpips_kind"] != "random-vgg(relative-only)":
+        raise AssertionError(f"lpips_kind {metrics['lpips_kind']}")
+    for key in ("within_rgb_psnr", "with_rgb_psnr", "within_rgb_lpips",
+                "with_rgb_lpips", "within_depth_abs_rel", "with_normal_mae",
+                "pd_accuracy", "pd_completeness", "pd_icp_rmse"):
+        if key not in metrics:
+            raise AssertionError(f"[mushroom] no {key} in {sorted(metrics)}")
+
+    # -- frame time with and without LPIPS (each run renders one warm-up
+    # frame first) --
+    per_frame = {}
+    for label, fn in (("lpips", None), ("stub", lambda a, b: 0.0)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        evaluate(trainer.params, trainer.alive, test_ds,
+                 pair_capacity=rcfg.pair_capacity, lpips_fn=fn)
+        per_frame[label] = (time.perf_counter() - t0) * 1e3 / len(test_ds)
+
+    # -- LPIPS on the card against the same module on the CPU --
+    with torch.no_grad():
+        out, _ = get_outputs(trainer.params, trainer.alive, cam0,
+                             ModelConfig(), rcfg, sh_degree=3,
+                             background=torch.zeros(3, device=dev))
+    gt_img = torch.as_tensor(batch0["image"], device=dev)
+    card = float(M.default_lpips()(out["rgb"], gt_img))
+    cpu_module = copy.deepcopy(M.default_lpips()).cpu()
+    host = float(cpu_module(out["rgb"].cpu(), gt_img.cpu()))
+    lpips_rel = abs(card - host) / abs(host)
+    if not (math.isfinite(card) and lpips_rel <= LPIPS_CPU_RTOL):
+        raise AssertionError(f"LPIPS on the card {card}, on the CPU {host}")
+
+    med = statistics.median(ms)
+    summary = {
+        "scene": "mushroom_1m", "width": WIDTH, "height": HEIGHT, **written,
+        "capture_write_s": write_s, "parse_train_s": parse_train_s,
+        "parse_test_s": parse_test_s, "frame_load_s": load_s,
+        "seed_points": int(seeds[0].shape[0]),
+        "seed_unique_points": unique_seeds,
+        "seeds_at_scale_floor_share": at_floor,
+        "train_frames": len(train_ds), "test_frames": len(test_ds),
+        "protocols": test_ds.protocols, "capacity": trainer.params.capacity,
+        "alive": int(trainer.alive.sum()), "steps": MUSHROOM_STEPS,
+        "ms_per_step": med, "ms_per_step_min": min(ms),
+        "ms_per_step_max": max(ms), "losses": losses,
+        "eval_ms_per_frame_lpips": per_frame["lpips"],
+        "eval_ms_per_frame_no_lpips": per_frame["stub"],
+        "icp_s": host_s["icp"][0], "pd_metrics_s": host_s["pd_metrics"][0],
+        "pair_capacity": rcfg.pair_capacity,
+        "pair_totals": totals, "lpips_card": card, "lpips_cpu": host,
+        "lpips_card_vs_cpu_rel_err": lpips_rel,
+        "metrics": {k: metrics[k] for k in (
+            "rgb_psnr", "rgb_ssim", "rgb_lpips", "within_rgb_psnr",
+            "with_rgb_psnr", "depth_abs_rel", "normal_mae", "pd_accuracy",
+            "pd_completeness", "pd_icp_rmse", "lpips_kind")},
+        "launches_train": launches, "launches_eval": eval_launches,
+        "gpu": gpu,
+    }
+    del trainer
+    torch.cuda.empty_cache()
+    return summary, [], collections.Counter(launches) + collections.Counter(
+        eval_launches)
+
+
 def oracle_grad_check(dev):
     """Gradients of the kernel path (forward_tiles, backward_tiles, the
     key sort, the reduction) against torch.autograd through the dense
@@ -1459,6 +1744,10 @@ def main() -> int:
                         "reduce_segments_packed_multi", gpu))
     del trainer, inputs
     print(json.dumps(oracle_grad_check(dev)), flush=True)
+    torch.cuda.empty_cache()
+    # -- the file-backed MuSHRoom path --
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=REPO) as tmp:
+        keep(*run_mushroom(dev, gpu, Path(tmp)))
 
     src = "dnsplatter_torch/csrc/"
     pallas = "dnsplatter_tpu/ops/rasterize_pallas.py"

@@ -1,11 +1,13 @@
-"""Lens distortion: OpenCV polynomial and equidistant fisheye (the image
-side of dnsplatter_tpu/data/distortion.py).
+"""Lens distortion: OpenCV polynomial and equidistant fisheye (counterpart
+of dnsplatter_tpu/data/distortion.py).
 
 The rasterizer is pinhole-only, so a distorted image is resampled onto the
 pinhole grid when it is loaded: for every undistorted output pixel, the
 forward model gives the source pixel in the captured image (the recipe of
 cv2.undistort). Parameter order is nerfstudio's `distortion_params`:
-[k1, k2, k3, k4, p1, p2]. Plain numpy: it runs once per frame on the host.
+[k1, k2, k3, k4, p1, p2]. Points are undistorted by fixed-point iteration
+(the recipe of cv2.undistortPoints), and COLMAP camera models map onto that
+order. Plain numpy: it runs once per frame on the host.
 """
 
 from __future__ import annotations
@@ -32,6 +34,22 @@ def distort_normalized(xn: np.ndarray, yn: np.ndarray, params: np.ndarray,
     xd = xn * radial + 2.0 * p1 * xn * yn + p2 * (r2 + 2.0 * xn * xn)
     yd = yn * radial + p1 * (r2 + 2.0 * yn * yn) + 2.0 * p2 * xn * yn
     return xd, yd
+
+
+def undistort_points(u: np.ndarray, v: np.ndarray, fx: float, fy: float,
+                     cx: float, cy: float, params: np.ndarray,
+                     camera_type: str = "perspective", iters: int = 20
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """Undistorted pixel coordinates of distorted ones, by `iters`
+    fixed-point steps on the forward model."""
+    xd = (np.asarray(u, np.float64) - cx) / fx
+    yd = (np.asarray(v, np.float64) - cy) / fy
+    xn, yn = xd.copy(), yd.copy()
+    for _ in range(iters):
+        xdd, ydd = distort_normalized(xn, yn, params, camera_type)
+        xn = xn + (xd - xdd)
+        yn = yn + (yd - ydd)
+    return xn * fx + cx, yn * fy + cy
 
 
 def _sample_bilinear(img: np.ndarray, x: np.ndarray, y: np.ndarray
@@ -74,3 +92,40 @@ def undistort_image(img: np.ndarray, fx: float, fy: float, cx: float,
         out = _sample_bilinear(img.astype(np.float64), sx, sy)
     out = np.where(inside[..., None], out, fill).astype(img.dtype)
     return out[..., 0] if squeeze else out
+
+
+def colmap_distortion(model: str, params: np.ndarray):
+    """A COLMAP camera model's parameters -> (the (6,) nerfstudio-order
+    params, camera_type); (None, 'perspective') for the pinhole models. A
+    model with no equivalent here raises rather than pass as a pinhole."""
+    p = np.asarray(params, np.float64)
+    z6 = np.zeros(6)
+    if model in ("SIMPLE_PINHOLE", "PINHOLE"):
+        return None, "perspective"
+    if model == "SIMPLE_RADIAL":
+        z6[0] = p[3]
+        return z6, "perspective"
+    if model == "RADIAL":
+        z6[0], z6[1] = p[3], p[4]
+        return z6, "perspective"
+    if model == "OPENCV":  # fx fy cx cy k1 k2 p1 p2
+        z6[0], z6[1], z6[4], z6[5] = p[4], p[5], p[6], p[7]
+        return z6, "perspective"
+    if model == "FULL_OPENCV":
+        # fx fy cx cy k1 k2 p1 p2 k3 k4 k5 k6: k3 is a numerator term and
+        # kept; k4-k6 are the rational model's denominator, which the
+        # polynomial model cannot express, and are dropped
+        z6[0], z6[1], z6[2] = p[4], p[5], p[8]
+        z6[4], z6[5] = p[6], p[7]
+        return z6, "perspective"
+    if model == "OPENCV_FISHEYE":  # fx fy cx cy k1 k2 k3 k4
+        z6[:4] = p[4:8]
+        return z6, "fisheye"
+    if model in ("SIMPLE_RADIAL_FISHEYE", "RADIAL_FISHEYE"):
+        z6[0] = p[3]
+        if len(p) > 4:
+            z6[1] = p[4]
+        return z6, "fisheye"
+    raise ValueError(
+        f"unsupported COLMAP camera model {model!r}: refusing to silently "
+        "treat it as a distortion-free pinhole")

@@ -1,11 +1,14 @@
-"""Image, depth and normal files (the image side of
-dnsplatter_tpu/data/io.py; PLY point clouds are not ported yet).
+"""Image, depth, normal and PLY files (counterpart of
+dnsplatter_tpu/data/io.py).
 
 PNGs are encoded here with zlib, so writing renders needs no imaging
 package; the pixel values are those of the JAX package's writer:
 uint8(clip(img, 0, 1) * 255), greyscale for one channel, RGB for three.
 Reading goes through PIL. Depth files follow the reference: 16-bit PNG in
-millimetres times a scale factor, or raw .npy in metres.
+millimetres times a scale factor, or raw .npy in metres. PLY point clouds
+and triangle meshes are read in ascii and binary little-endian and written
+in binary little-endian, in the JAX package's layout, so either package
+reads what the other writes.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ from __future__ import annotations
 import struct
 import zlib
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -126,3 +129,132 @@ def read_normal(path: Path, format: str = "omnidata",
     if rot is not None:
         vec = vec @ rot.T
     return (vec + 1.0) * 0.5
+
+
+# numpy dtypes of the PLY scalar types
+_PLY_NP_TYPES = {
+    "float": "<f4", "float32": "<f4", "double": "<f8", "float64": "<f8",
+    "uchar": "u1", "uint8": "u1", "char": "i1", "int8": "i1",
+    "short": "<i2", "ushort": "<u2", "int": "<i4", "int32": "<i4",
+    "uint": "<u4", "uint32": "<u4",
+}
+
+
+def read_ply(path: Path) -> Dict[str, np.ndarray]:
+    """Vertex (and face) data of an ascii or binary little-endian PLY:
+    'points' (N, 3) float32, and where present 'colors' (N, 3) in [0, 1],
+    'normals' (N, 3) and 'faces' (F, 3) int32 of a triangle mesh."""
+    with open(path, "rb") as f:
+        if f.readline().strip() != b"ply":
+            raise ValueError(f"{path} is not a PLY file")
+        fmt = None
+        n_vertex = n_face = 0
+        props = []  # (name, type) of the vertex element
+        face_list_types = None  # (count type, index type)
+        current = None
+        while True:
+            line = f.readline().strip().decode("ascii")
+            if line.startswith("format"):
+                fmt = line.split()[1]
+            elif line.startswith("element"):
+                _, current, cnt = line.split()
+                if current == "vertex":
+                    n_vertex = int(cnt)
+                elif current == "face":
+                    n_face = int(cnt)
+            elif line.startswith("property") and current == "vertex":
+                parts = line.split()
+                if parts[1] == "list":
+                    raise ValueError("list property in vertex element")
+                props.append((parts[2], parts[1]))
+            elif line.startswith("property list") and current == "face":
+                parts = line.split()
+                face_list_types = (parts[2], parts[3])
+            elif line == "end_header":
+                break
+
+        names = [p[0] for p in props]
+        faces = None
+        if fmt == "ascii":
+            rows = np.atleast_2d(np.loadtxt(f, max_rows=n_vertex,
+                                            dtype=np.float64))
+            data = {n: rows[:, i] for i, n in enumerate(names)}
+            if n_face:
+                frows = np.atleast_2d(np.loadtxt(f, max_rows=n_face,
+                                                 dtype=np.int64))
+                faces = frows[:, 1:4].astype(np.int32)
+        elif fmt == "binary_little_endian":
+            dt = np.dtype([(n, _PLY_NP_TYPES[t]) for n, t in props])
+            raw = np.frombuffer(f.read(dt.itemsize * n_vertex), dtype=dt,
+                                count=n_vertex)
+            data = {n: raw[n].astype(np.float64) for n in names}
+            if n_face and face_list_types is not None:
+                fdt = np.dtype([("n", _PLY_NP_TYPES[face_list_types[0]]),
+                                ("idx", _PLY_NP_TYPES[face_list_types[1]],
+                                 (3,))])
+                raw_f = f.read(fdt.itemsize * n_face)
+                if len(raw_f) >= fdt.itemsize * n_face:
+                    rec = np.frombuffer(raw_f, dtype=fdt, count=n_face)
+                    if (rec["n"] == 3).all():
+                        faces = rec["idx"].astype(np.int32)
+        else:
+            raise ValueError(f"unsupported PLY format {fmt}")
+
+    out = {"points": np.stack([data["x"], data["y"], data["z"]],
+                              -1).astype(np.float32)}
+    if all(k in data for k in ("red", "green", "blue")):
+        cols = np.stack([data["red"], data["green"], data["blue"]], -1)
+        if cols.size and cols.max() > 1.0:
+            cols = cols / 255.0
+        out["colors"] = cols.astype(np.float32)
+    if all(k in data for k in ("nx", "ny", "nz")):
+        out["normals"] = np.stack([data["nx"], data["ny"], data["nz"]],
+                                  -1).astype(np.float32)
+    if faces is not None:
+        out["faces"] = faces
+    return out
+
+
+def write_ply(path: Path, points: np.ndarray,
+              colors: Optional[np.ndarray] = None,
+              normals: Optional[np.ndarray] = None,
+              faces: Optional[np.ndarray] = None) -> None:
+    """A binary little-endian PLY: float xyz, float normals, uchar colours
+    (scaled by 255 when they lie in [0, 1]), uchar-counted int faces."""
+    n = len(points)
+    header = ["ply", "format binary_little_endian 1.0", f"element vertex {n}",
+              "property float x", "property float y", "property float z"]
+    fields = [("x", "<f4"), ("y", "<f4"), ("z", "<f4")]
+    if normals is not None:
+        header += ["property float nx", "property float ny",
+                   "property float nz"]
+        fields += [("nx", "<f4"), ("ny", "<f4"), ("nz", "<f4")]
+    if colors is not None:
+        header += ["property uchar red", "property uchar green",
+                   "property uchar blue"]
+        fields += [("red", "u1"), ("green", "u1"), ("blue", "u1")]
+    if faces is not None:
+        header += [f"element face {len(faces)}",
+                   "property list uchar int vertex_indices"]
+    header.append("end_header")
+
+    rec = np.empty(n, dtype=np.dtype(fields))
+    rec["x"], rec["y"], rec["z"] = points[:, 0], points[:, 1], points[:, 2]
+    if normals is not None:
+        rec["nx"], rec["ny"], rec["nz"] = (normals[:, 0], normals[:, 1],
+                                           normals[:, 2])
+    if colors is not None:
+        scale_up = colors.size and colors.max() <= 1.0 + 1e-6
+        cols = np.clip(colors * 255.0 if scale_up else colors, 0,
+                       255).astype(np.uint8)
+        rec["red"], rec["green"], rec["blue"] = (cols[:, 0], cols[:, 1],
+                                                 cols[:, 2])
+    with open(path, "wb") as f:
+        f.write(("\n".join(header) + "\n").encode("ascii"))
+        f.write(rec.tobytes())
+        if faces is not None:
+            frec = np.empty(len(faces), dtype=np.dtype(
+                [("n", "u1"), ("idx", "<i4", (3,))]))
+            frec["n"] = 3
+            frec["idx"] = faces.astype("<i4")
+            f.write(frec.tobytes())
