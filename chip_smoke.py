@@ -99,9 +99,31 @@ Phases (any failure raises and the script exits non-zero):
    parse, frame-load and ICP seconds, the step times, the eval time per
    frame with LPIPS and with a stub in its place, and the pair capacity.
 
+9. The CLI and the mesh chain, on phase 8's capture, through the command
+   functions of `dnsplatter_torch.cli` called in-process: `train
+   dn-splatter mushroom` for 13 steps at the parser's defaults (1,000,000
+   seeds) with depth and normal losses and TensorBoard on (a `ckpt_*.npz`,
+   finite losses read back from `tb/`, the four step kernels once a
+   step); `eval` of the val split with both protocols at the audited pair
+   capacity (`metrics.json` finite, the expansion and `forward_tiles`
+   once a frame plus one warm-up); `export` in all seven modes at that
+   capacity, every export frame's pair list checked to fit (`tsdf` and
+   `o3dtsdf` sparse at 1 cm, `dn` with FFT Poisson at 192 and its TSDF,
+   `gaussians` with CG Poisson at 256, `sugar-coarse`, `isofusion` on the
+   adaptive octree, `marching` at 128 and level 0.1), each mesh's
+   vertices finite and its faces indexing them, the renders' launches
+   exact, the seconds split into named host work (KD-trees, brick
+   hashing and extraction, marching, clustering, smoothing, the octree)
+   and the rest; then a reference mesh fused from the capture's own depth
+   frames in the parser's frame by `mesh/tsdf.py` (the route of
+   `tsdf_fused_cloud`, which runs too, in the capture's frame),
+   the `tsdf`, `dn` and `isofusion` meshes scored by `evaluate_mesh`
+   and the `dn` mesh by `evaluate_mesh_mushroom`, every metric finite.
+
 Prints one JSON line per kernel and scene, one per scene (the MuSHRoom
-path's among them), a `kernels` line whose launch counts sum the main
-paths of phases 2-5 and 8, the card's name and power limit, and last
+path's and the CLI's among them), the script's seconds, a `kernels` line
+whose launch counts sum the main paths of phases 2-5, 8 and 9, the card's
+name and power limit, and last
 {"ok": true, "device": {...}}. Needs CUDA: without it, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
@@ -1583,6 +1605,344 @@ def run_mushroom(dev, gpu, tmp: Path):
         eval_launches)
 
 
+# Phase 9: the CLI and the mesh chain on phase 8's capture.
+CLI_STEPS = 13
+EXPORT_MODES = (
+    # mode, extra flags, the meshes it writes (globs: each must match)
+    ("tsdf", (), ("TSDFfusion_mesh.ply",)),
+    ("o3dtsdf", (), ("TSDFfusion_mesh.ply",)),
+    ("dn", (), ("DepthAndNormals_poisson_mesh.ply", "TSDFfusion_mesh.ply")),
+    ("gaussians", ("--poisson-resolution", "256"),
+     ("Gaussians_poisson_mesh.ply",)),
+    # a level with 100 points or fewer gets no Poisson mesh
+    ("sugar-coarse", (), ("sugar_level_*_poisson_mesh.ply",)),
+    ("isofusion", (), ("IsoFusion_mesh.ply",)),
+    # a 13-step model's density stays under the default level of 0.5
+    ("marching", ("--resolution", "128", "--level", "0.1"),
+     ("MarchingCubes_mesh.ply",)),
+)
+
+
+class HostTimers:
+    """Seconds spent in the mesh chain's host functions (KD-trees, brick
+    hashing, marching, clustering, decimation, smoothing, the octree's own
+    work), by name, while active. Only the outermost timed call counts (the
+    sparse volume's extraction holds its marching); the isofunc's device
+    evaluations are timed apart and taken out of the octree's seconds."""
+
+    def __init__(self):
+        from dnsplatter_torch.mesh import (isofusion, marching, octree,
+                                           poisson, postprocess, tsdf_sparse)
+        from dnsplatter_torch.models import sugar
+
+        self.s = collections.Counter()
+        self.depth = 0
+        sp = tsdf_sparse.SparseTSDF
+        self.targets = [
+            (sp, "_surface_bricks", "brick_hash"),
+            (sp, "_ensure_slots", "brick_hash"),
+            (sp, "extract_mesh", "brick_extract"),
+            (marching, "marching_tetrahedra", "marching"),
+            (sugar, "get_closest_gaussians", "kdtree"),
+            (sugar, "closest_gaussians_tree", "kdtree"),
+            (poisson, "trim_mesh_to_points", "kdtree"),
+            (poisson, "density_quantile_cull", "kdtree"),
+            (postprocess, "remove_small_clusters", "clusters"),
+            (postprocess, "simplify_quadric_decimation", "decimation"),
+            (postprocess, "filter_smooth_laplacian", "smoothing"),
+            (octree, "adaptive_isosurface", "octree"),
+        ]
+        self.isofusion = isofusion
+        self.patches = []
+
+    def _timed(self, fn, name, inner=False):
+        import torch
+
+        def call(*args, **kw):
+            if self.depth and not inner:
+                return fn(*args, **kw)
+            self.depth += 1
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                torch.cuda.synchronize()
+                self.s[name] += time.perf_counter() - t
+                self.depth -= 1
+        return call
+
+    def host_seconds(self) -> float:
+        return sum(v for k, v in self.s.items() if k != "isofunc_card")
+
+    def __enter__(self):
+        for obj, attr, name in self.targets:
+            self.patches.append(mock.patch.object(
+                obj, attr, self._timed(getattr(obj, attr), name)))
+        make = self.isofusion.make_isofunc
+
+        def make_timed(*args, **kw):
+            return self._timed(make(*args, **kw), "isofunc_card", inner=True)
+        self.patches.append(mock.patch.object(self.isofusion, "make_isofunc",
+                                              make_timed))
+        for p in self.patches:
+            p.start()
+        return self
+
+    def __exit__(self, *exc):
+        for p in reversed(self.patches):
+            p.stop()
+        self.patches = []
+        if self.s["octree"]:
+            self.s["octree"] -= self.s["isofunc_card"]
+        return False
+
+
+def check_mesh(path: Path) -> dict:
+    """Vertex and face counts of a written mesh: finite vertices, faces that
+    index them, at least one face."""
+    import numpy as np
+
+    from dnsplatter_torch.data import io
+
+    mesh = io.read_ply(path)
+    v, f = mesh["points"], mesh.get("faces")
+    if f is None or len(f) == 0:
+        raise AssertionError(f"{path.name}: no faces")
+    if not np.isfinite(v).all():
+        raise AssertionError(f"{path.name}: vertices not finite")
+    if int(f.min()) < 0 or int(f.max()) >= len(v):
+        raise AssertionError(f"{path.name}: faces index outside the "
+                             f"{len(v)} vertices")
+    return {"vertices": int(len(v)), "faces": int(len(f))}
+
+
+def run_cli_mesh(dev, gpu, tmp: Path):
+    """Phase 9: on phase 8's capture, `cli train` (13 steps at the parser's
+    defaults, TensorBoard on), `cli eval` of the val split with both
+    protocols, `cli export` in all seven modes at the audited pair capacity,
+    then the meshes scored against one fused from the capture's own depth
+    frames. Returns (summary, [], launches)."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from dnsplatter_torch import cli
+    from dnsplatter_torch.data import io
+    from dnsplatter_torch.data import pointcloud_utils as pu
+    from dnsplatter_torch.eval.mesh_metrics import evaluate_mesh
+    from dnsplatter_torch.eval.mesh_mushroom import evaluate_mesh_mushroom
+    from dnsplatter_torch.eval.evaluator import eval_raster_config
+    from dnsplatter_torch.ops import rasterize_cuda as rc
+    from dnsplatter_torch.train.trainer import Trainer
+    from dnsplatter_torch.utils.writers import read_tfevents_scalars
+
+    data = ["--dataparser", "mushroom", "--data", str(tmp)]
+    run = tmp / "run"
+    seconds = {}
+
+    def sync_now() -> float:
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    # -- train: the four step kernels once a step --
+    step_ms, saves = [], []
+    train_one, save = Trainer.train_one, Trainer.save_checkpoint
+
+    def timed_step(self, *args, **kw):
+        t = sync_now()
+        out = train_one(self, *args, **kw)
+        step_ms.append((sync_now() - t) * 1e3)
+        return out
+
+    def timed_save(self, *args, **kw):
+        t = sync_now()
+        out = save(self, *args, **kw)
+        saves.append(sync_now() - t)
+        return out
+
+    rc.LAUNCHES.clear()
+    t0 = sync_now()
+    with mock.patch.object(Trainer, "train_one", timed_step), \
+            mock.patch.object(Trainer, "save_checkpoint", timed_save), \
+            contextlib.redirect_stdout(sys.stderr):
+        trainer = cli.cmd_train([
+            "dn-splatter", "mushroom", "--data", str(tmp), "--output-dir",
+            str(run), "--max-iterations", str(CLI_STEPS),
+            "--model.use-depth-loss", "true",
+            "--model.use-normal-loss", "true", "--train.tensorboard", "true"])
+    seconds["train"] = sync_now() - t0
+    train_launches = {k: rc.LAUNCHES[k] for k in STEP_KERNELS + REDUCERS}
+    want = expected_step_launches(CLI_STEPS, trainer.params.capacity,
+                                  "reduce_segments_bykey")
+    if train_launches != want or want["expand_segments_stream"] == 0:
+        raise AssertionError(f"[cli] train launches {train_launches}, "
+                             f"expected {want}")
+    if trainer.params.means.device.type != dev.type:
+        raise AssertionError("cli train did not default to the card")
+    n_seeds = int(trainer.params.means.shape[0])  # the state's capacity
+    n_alive = int(trainer.alive.sum())
+    ckpts = sorted(run.glob("ckpt_*.npz"))
+    if [c.name for c in ckpts] != [f"ckpt_{CLI_STEPS:06d}.npz"]:
+        raise AssertionError(f"[cli] checkpoints {ckpts}")
+    (tb,) = (run / "tb").iterdir()
+    tb_losses = [e["scalars"]["loss"] for e in read_tfevents_scalars(tb)
+                 if "loss" in e["scalars"]]
+    if not tb_losses or not all(math.isfinite(v) for v in tb_losses):
+        raise AssertionError(f"[cli] tensorboard losses {tb_losses}")
+    cap = trainer.train_cfg.pair_capacity
+    audited = trainer.audited_pairs
+    train_data = trainer.data
+    cams = [train_data.camera(i) for i in range(len(train_data))]
+    gt_depths = [train_data.get(i)[1]["sensor_depth"]
+                 for i in range(len(train_data))]
+    params, alive = trainer.params, trainer.alive
+    del trainer
+    log(f"[cli] train: {seconds['train']:.1f} s, {len(step_ms)} steps, "
+        f"median {statistics.median(step_ms):.1f} ms, checkpoint "
+        f"{saves[0]:.1f} s, pair capacity {cap}")
+
+    # -- eval: one expansion and one forward_tiles a frame, plus a warm-up
+    eval_dir = tmp / "evald"
+    rc.LAUNCHES.clear()
+    t0 = sync_now()
+    with contextlib.redirect_stdout(sys.stderr):
+        metrics = cli.cmd_eval(["--checkpoint", str(ckpts[0]), *data,
+                                "--split", "val", "--parser.eval-mode", "all",
+                                "--pair-capacity", str(cap),
+                                "--output-dir", str(eval_dir)])
+    seconds["eval"] = sync_now() - t0
+    eval_names = ("expand_segments", "expand_segments_stream",
+                  "forward_tiles")
+    eval_launches = {k: rc.LAUNCHES[k] for k in eval_names}
+    frames = metrics["num_images"]
+    want = dict.fromkeys(eval_names, 0)
+    want["forward_tiles"] = want[expand_entry(rc, n_seeds).__name__] = (
+        1 + frames)
+    if eval_launches != want:
+        raise AssertionError(f"[cli] eval launches {eval_launches}, "
+                             f"expected {want}")
+    written = json.loads((eval_dir / "metrics.json").read_text())
+    for key in ("within_rgb_psnr", "with_rgb_psnr", "rgb_psnr"):
+        if not math.isfinite(written.get(key, float("nan"))):
+            raise AssertionError(f"[cli] metrics.json {key}: "
+                                 f"{written.get(key)}")
+    bad = {k: v for k, v in written.items()
+           if isinstance(v, float) and not math.isfinite(v)}
+    if bad:
+        raise AssertionError(f"[cli] metrics not finite: {bad}")
+
+    # every export frame's pair list fits the capacity
+    rcfg = eval_raster_config(WIDTH, HEIGHT, cap)
+    totals = pair_totals(params, alive, cams, rcfg)
+    if max(totals) > cap:
+        raise AssertionError(f"[cli] pair totals {totals} overflow {cap}")
+    del params, alive
+    torch.cuda.empty_cache()
+
+    # -- export: every mode --
+    exports = {}
+    renders = {"tsdf": len(cams), "o3dtsdf": len(cams), "dn": 2 * len(cams),
+               "gaussians": 0, "sugar-coarse": -(-len(cams) // 4),
+               "isofusion": len(cams), "marching": 0}
+    for mode, extra, meshes in EXPORT_MODES:
+        out = tmp / "exports" / mode
+        rc.LAUNCHES.clear()
+        with HostTimers() as host, contextlib.redirect_stdout(sys.stderr):
+            t0 = sync_now()
+            cli.cmd_export([mode, "--checkpoint", str(ckpts[0]), *data,
+                            "--output-dir", str(out), "--pair-capacity",
+                            str(cap), *extra])
+            total = sync_now() - t0
+        launches = {k: rc.LAUNCHES[k] for k in eval_names}
+        want = dict.fromkeys(eval_names, 0)
+        want["forward_tiles"] = want[expand_entry(rc, n_seeds).__name__] = (
+            renders[mode])
+        if launches != want:
+            raise AssertionError(f"[cli] export {mode} launches {launches}, "
+                                 f"expected {want}")
+        host_s = {k: v for k, v in sorted(host.s.items()) if v}
+        exports[mode] = {
+            "seconds": total, "host_seconds": host_s,
+            # renders, device work, transfers, PLY writes and the rest
+            "other_seconds": total - host.host_seconds(),
+            "meshes": {p.name: check_mesh(p) for m in meshes
+                       for p in sorted(out.glob(m)) or [out / m]},
+            "launches": launches}
+        torch.cuda.empty_cache()
+        log(f"[cli] export {mode}: {total:.1f} s, host {host_s}, "
+            f"{exports[mode]['meshes']}")
+
+    # -- score: against a mesh fused from the capture's own depth frames,
+    # in the parser's frame (oriented, centred and scaled as the model),
+    # by the route of tsdf_fused_cloud, which runs too (capture frame) --
+    long_dir = tmp / "iphone" / "long_capture"
+    t0 = sync_now()
+    scale = train_data.dataparser_scale
+    gt_v, gt_f, _ = pu.tsdf_fuse_frames(
+        [(b["image"], b["sensor_depth"], c.c2w.cpu().numpy(), float(c.fx),
+          float(c.fy), float(c.cx), float(c.cy))
+         for c, b in (train_data.get(i) for i in range(len(train_data)))],
+        voxel=0.04 * scale, trunc=0.2 * scale, reach=4.0 * scale)
+    seconds["reference_mesh"] = sync_now() - t0
+    t0 = sync_now()
+    cloud = pu.tsdf_fused_cloud(long_dir)
+    seconds["tsdf_fused_cloud"] = sync_now() - t0
+    log(f"[cli] reference mesh {len(gt_v)} vertices / {len(gt_f)} faces: "
+        f"{seconds['reference_mesh']:.1f} s; tsdf_fused_cloud "
+        f"{seconds['tsdf_fused_cloud']:.1f} s")
+    if cloud[0].shape != (1_000_000, 3) or not np.isfinite(cloud[0]).all():
+        raise AssertionError(f"[cli] tsdf_fused_cloud {cloud[0].shape}")
+    scores = {}
+    for mode, name in (("tsdf", "TSDFfusion_mesh.ply"),
+                       ("dn", "DepthAndNormals_poisson_mesh.ply"),
+                       ("isofusion", "IsoFusion_mesh.ply")):
+        mesh = io.read_ply(tmp / "exports" / mode / name)
+        t0 = sync_now()
+        scores[mode] = evaluate_mesh(mesh["points"], mesh["faces"], gt_v,
+                                     gt_f, cams)
+        seconds[f"evaluate_mesh_{mode}"] = sync_now() - t0
+        log(f"[cli] evaluate_mesh {mode}: "
+            f"{seconds[f'evaluate_mesh_{mode}']:.1f} s {scores[mode]}")
+    mesh = io.read_ply(tmp / "exports" / "dn"
+                       / "DepthAndNormals_poisson_mesh.ply")
+    t0 = sync_now()
+    scores["dn_mushroom"] = evaluate_mesh_mushroom(
+        mesh["points"], mesh["faces"], gt_v, gt_f, cams, gt_depths=gt_depths,
+        icp_transform=np.eye(4))
+    seconds["evaluate_mesh_mushroom_dn"] = sync_now() - t0
+    for label, m in scores.items():
+        for k, v in m.items():
+            if not math.isfinite(v):
+                raise AssertionError(f"[cli] {label} {k} = {v}")
+
+    launches = collections.Counter(train_launches) + collections.Counter(
+        eval_launches)
+    for e in exports.values():
+        launches.update(e["launches"])
+    summary = {
+        "scene": "cli_mesh_1m", "width": WIDTH, "height": HEIGHT,
+        "capacity": n_seeds, "alive": n_alive, "steps": CLI_STEPS,
+        "train_ms_per_step": statistics.median(step_ms),
+        "train_ms_per_step_min": min(step_ms),
+        "train_ms_per_step_max": max(step_ms),
+        "checkpoint_save_s": saves[0], "tensorboard_losses": tb_losses,
+        "pair_capacity": cap, "audited_pairs": audited,
+        "pair_totals": totals, "eval_frames": frames,
+        "eval_metrics": {k: written[k] for k in (
+            "rgb_psnr", "within_rgb_psnr", "with_rgb_psnr", "rgb_lpips",
+            "depth_abs_rel") if k in written},
+        "seconds": seconds, "exports": exports,
+        "reference_mesh": {"vertices": int(len(gt_v)),
+                           "faces": int(len(gt_f))},
+        "mesh_metrics": scores,
+        "launches_train": train_launches, "launches_eval": eval_launches,
+        "gpu": gpu,
+    }
+    return summary, [], launches
+
+
 def oracle_grad_check(dev):
     """Gradients of the kernel path (forward_tiles, backward_tiles, the
     key sort, the reduction) against torch.autograd through the dense
@@ -1657,6 +2017,7 @@ def oracle_grad_check(dev):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -1748,6 +2109,9 @@ def main() -> int:
     # -- the file-backed MuSHRoom path --
     with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=REPO) as tmp:
         keep(*run_mushroom(dev, gpu, Path(tmp)))
+        torch.cuda.empty_cache()
+        # -- the CLI and the mesh chain on the same capture --
+        keep(*run_cli_mesh(dev, gpu, Path(tmp)))
 
     src = "dnsplatter_torch/csrc/"
     pallas = "dnsplatter_tpu/ops/rasterize_pallas.py"
@@ -1782,6 +2146,8 @@ def main() -> int:
             "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
             "scene": scene,
         })
+    print(json.dumps({"script_seconds": time.perf_counter() - t_start}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,8 @@ replica, nrgbd, coolermap and gsdf.
 
 Each parser is `parse(cfg, split="train", device=None) -> SceneDataset`,
 with `device` (None: the card) for the dataset's cameras and any seed-cloud
-work. Third-party parsers from an entry-point group need utils/plugins.py,
-which is not ported yet.
+work. A name outside the seven is looked up in the
+`dnsplatter_torch.dataparsers` entry-point group (utils/plugins.py).
 """
 
 from typing import Callable, Dict
@@ -28,8 +28,10 @@ def get_parser(name: str):
         scannetpp)
 
     if name not in PARSERS:
-        raise KeyError(
-            f"unknown dataparser {name!r}; have {sorted(PARSERS)} (parsers "
-            "from the entry-point group need utils/plugins.py, not ported "
-            "yet: ROADMAP.md queue A item 8)")
+        from dnsplatter_torch.utils.plugins import (DATAPARSERS_GROUP,
+                                                    load_group)
+
+        load_group(DATAPARSERS_GROUP, PARSERS)
+    if name not in PARSERS:
+        raise KeyError(f"unknown dataparser {name!r}; have {sorted(PARSERS)}")
     return PARSERS[name]

@@ -56,7 +56,7 @@ class MushroomParserConfig:
     # exactly num_init_points
     num_init_points: int = 1_000_000
     regenerate_seed_cloud: bool = True
-    seed_cloud_tsdf: bool = False  # TSDF fusion (not ported yet)
+    seed_cloud_tsdf: bool = False  # TSDF-fuse instead of backprojection
     # normals from the sensor depth where no normals_from_pretrain/ exists
     auto_generate_normals: bool = True
 

@@ -47,7 +47,7 @@ class ScannetppParserConfig:
     # iphone seed cloud fused from the RGB-D frames instead of the sparse
     # COLMAP points
     iphone_tsdf_seed: bool = True
-    seed_cloud_tsdf: bool = False  # True: TSDF fusion (not ported yet)
+    seed_cloud_tsdf: bool = False  # True = TSDF fuse; False = backproject
     num_init_points: int = 1_000_000
 
 

@@ -5,10 +5,11 @@ When a dataset ships no seed cloud, or one of the wrong size, one is built:
 for kinect captures from the per-frame SpectacularAI PointCloud/*.ply files
 re-posed into the COLMAP frame; for iphone and ScanNet++ captures from the
 train RGB-D frames, backprojected with a voxel de-duplication, with normals
-from the depth maps. `resample_to_num_points` gives the exact size the
-parser asks for. The backprojection and sampling run in numpy on the host,
-as in the JAX package, so the cloud's points and their order are the same;
-the depth normals run on `device` (None: the card).
+from the depth maps, or (`use_tsdf`) fused in a TSDF volume whose surface is
+sampled. `resample_to_num_points` gives the exact size the parser asks for.
+The backprojection and sampling run in numpy on the host, as in the JAX
+package, so the cloud's points and their order are the same; the depth
+normals and the TSDF fusion run on `device` (None: the card).
 """
 
 from __future__ import annotations
@@ -161,15 +162,66 @@ def backproject_rgbd_cloud(capture_dir: Path, num_points: int = 1_000_000,
     return resample_to_num_points(pts, cols, nrms, num_points, seed)
 
 
+def tsdf_fuse_frames(frames, voxel: float = 0.04, trunc: float = 0.2,
+                     resolution_cap: int = 192, reach: float = 4.0,
+                     device=None):
+    """(vertices, faces, colours) of RGB-D frames, each (rgb, depth (H, W,
+    1), OpenGL c2w, fx, fy, cx, cy), fused on `device` (None: the card) by
+    mesh/tsdf.py in a dense volume over the cameras +- `reach`, at `voxel`
+    or coarser so that no side exceeds `resolution_cap` voxels, and meshed
+    on the host."""
+    from dnsplatter_torch.mesh import tsdf as T
+
+    if not frames:
+        raise ValueError("no RGB-D frames to fuse")
+    cams = np.stack([(np.asarray(fr[2], np.float64) @ OPENGL_TO_OPENCV)[:3, 3]
+                     for fr in frames])
+    lo, hi = cams.min(0) - reach, cams.max(0) + reach
+    voxel = max(voxel, float(np.max(hi - lo)) / resolution_cap)
+    cfg = T.TSDFConfig(voxel_size=voxel, sdf_trunc=max(trunc, 3 * voxel))
+    vol = T.create_volume(lo, hi, cfg, device=device)
+    for rgb, depth, c2w, fx, fy, cx, cy in frames:
+        T.integrate(vol, depth, rgb, c2w, fx, fy, cx, cy, cfg)
+    return T.extract_mesh(vol)
+
+
+def tsdf_fused_mesh(capture_dir: Path, depth_scale: float = 1e-3,
+                    voxel: float = 0.04, trunc: float = 0.2,
+                    max_frames: int = 60, resolution_cap: int = 192,
+                    device=None):
+    """`tsdf_fuse_frames` of the train RGB-D frames of a capture, in its
+    own frame (metres)."""
+    meta = _load_frames_meta(capture_dir)
+    frames = _cap_frames(_train_frames(capture_dir, meta), max_frames)
+    loaded = [f for f in (_load_rgbd_frame(capture_dir, meta, fr, depth_scale)
+                          for fr in frames) if f is not None]
+    if not loaded:
+        raise FileNotFoundError(f"no RGB-D frames under {capture_dir}")
+    return tsdf_fuse_frames(loaded, voxel, trunc, resolution_cap,
+                            device=device)
+
+
 def tsdf_fused_cloud(capture_dir: Path, num_points: int = 1_000_000,
                      depth_scale: float = 1e-3, voxel: float = 0.04,
                      trunc: float = 0.2, max_frames: int = 60,
-                     resolution_cap: int = 192):
-    """The TSDF-fusion route (the JAX package's mesh/tsdf.py and
-    eval/mesh_metrics.sample_surface) is not ported yet."""
-    raise NotImplementedError(
-        "tsdf_fused_cloud needs mesh/tsdf.py and eval/mesh_metrics, which "
-        "are not ported yet: ROADMAP.md queue A item 9")
+                     resolution_cap: int = 192, device=None
+                     ) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
+    """The TSDF-fusion route (the reference's o3d ScalableTSDFVolume call,
+    voxel 0.04 / trunc 0.2): the surface of `tsdf_fused_mesh`, sampled on
+    the host; the samples carry the nearest vertex's colour and their
+    face's normal."""
+    from scipy.spatial import cKDTree
+
+    from dnsplatter_torch.eval.mesh_metrics import sample_surface
+
+    verts, faces, colors = tsdf_fused_mesh(capture_dir, depth_scale, voxel,
+                                           trunc, max_frames, resolution_cap,
+                                           device=device)
+    if len(faces) == 0:
+        raise RuntimeError("TSDF fusion produced an empty surface")
+    pts, nrm = sample_surface(verts, faces, num_points, seed=0)
+    _, vi = cKDTree(verts, compact_nodes=False).query(pts, k=1, workers=-1)
+    return pts.astype(np.float32), colors[vi].astype(np.float32), nrm
 
 
 def generate_iphone_pointcloud(capture_dir: Path, out_path: Path,
@@ -181,7 +233,7 @@ def generate_iphone_pointcloud(capture_dir: Path, out_path: Path,
     frames, written to `out_path` as PLY."""
     if use_tsdf:
         pts, cols, nrms = tsdf_fused_cloud(capture_dir, num_points,
-                                           depth_scale)
+                                           depth_scale, device=device)
     else:
         pts, cols, nrms = backproject_rgbd_cloud(
             capture_dir, num_points=num_points, depth_scale=depth_scale,

@@ -18,9 +18,12 @@ the Gaussians (`models/camera_opt.py`, `train/optim.py:cam_opt_update`).
 refinement cadence, the log and the SH schedule: the JAX package ran them
 as one device dispatch; here they are k calls of the same step function.
 
+With an `out_dir` the loop logs to `metrics.jsonl` and, with
+`TrainConfig.tensorboard`, to a tfevents file under `out_dir/tb`
+(`utils/writers.py`).
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-`devices > 1`, `distributed` / `dp > 1`, the viewer and the TensorBoard
-writer.
+`devices > 1`, `distributed` / `dp > 1` and the viewer.
 """
 
 from __future__ import annotations
@@ -77,7 +80,7 @@ from dnsplatter_torch.train.strategy import (
     reset_opacity,
     update_stats,
 )
-from dnsplatter_torch.train.writers import JsonlWriter
+from dnsplatter_torch.utils.writers import JsonlWriter, TensorboardWriter
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
@@ -145,10 +148,6 @@ def _check_ported(model_cfg: ModelConfig, tc: TrainConfig) -> None:
     if tc.viewer:
         raise NotImplementedError(
             "the viewer is not ported yet: ROADMAP.md queue A item 15")
-    if tc.tensorboard:
-        raise NotImplementedError(
-            "the TensorBoard writer is not ported yet: ROADMAP.md queue A "
-            "item 8")
 
 
 def loss_and_grads(
@@ -309,6 +308,8 @@ class Trainer:
         self._writers = []
         if self.out_dir:
             self._writers.append(JsonlWriter(self.out_dir))
+            if train_cfg.tensorboard:
+                self._writers.append(TensorboardWriter(self.out_dir / "tb"))
 
     # -- configuration ----------------------------------------------------
 

@@ -770,3 +770,137 @@ def test_tile_kernels_refuse_misaligned_inputs(dev):
     with pytest.raises(ValueError, match="g_out"):
         rc.backward_tiles(*fargs[:3], g, g_alpha, t_final, last,
                           *fargs[3:])
+
+
+# -- meshing and mesh evaluation on the card, against the port's CPU run ------
+#
+# Tolerances: the sparse TSDF's weights and tsdf within 1e-5 on all but 0.5%
+# of the observed voxels (the card may contract a voxel centre's multiply-add
+# into one rounding, so a voxel a hair from a pixel boundary or the band's
+# edge can land on the other side, within one pixel's depth step over the
+# truncation); the Poisson indicator rel 1e-4 of its largest magnitude (FFT
+# and CG); densities rel 1e-5; mesh depth rel 1e-5 where both hit, with hit
+# masks apart on at most 0.1% of the pixels; native marching the numpy path's
+# surface (equal counts, sorted vertex radii within 1e-4; its own order).
+
+
+def _sphere_frames(n=4, h=64, w=64, f=58.0, radius=2.0):
+    from dnsplatter_torch.ops.camera import look_at
+
+    out = []
+    for i in range(n):
+        ang = 2 * np.pi * i / n
+        eye = (0.3 * np.cos(ang), 0.1, 0.3 * np.sin(ang))
+        tgt = (2.5 * np.cos(ang), 0.0, 2.5 * np.sin(ang))
+        c2w = look_at(eye, tgt, device="cpu").numpy().astype(np.float64)
+        c2w_cv = c2w @ np.diag([1.0, -1.0, -1.0, 1.0])
+        vv, uu = np.mgrid[0:h, 0:w]
+        dirs = np.stack([(uu + 0.5 - w / 2) / f, (vv + 0.5 - h / 2) / f,
+                         np.ones_like(uu, np.float64)], -1) @ c2w_cv[:3, :3].T
+        o = c2w_cv[:3, 3]
+        a = (dirs * dirs).sum(-1)
+        b = 2 * (o * dirs).sum(-1)
+        c = (o * o).sum() - radius ** 2
+        t = (-b + np.sqrt(np.maximum(b * b - 4 * a * c, 0))) / (2 * a)
+        rgb = np.random.default_rng(i).random((h, w, 3)).astype(np.float32)
+        out.append((c2w.astype(np.float32), t[..., None].astype(np.float32),
+                    rgb, f, w / 2, h / 2))
+    return out
+
+
+@pytest.mark.cuda
+def test_sparse_tsdf_card_matches_cpu(dev):
+    from dnsplatter_torch.mesh.tsdf_sparse import SparseTSDF, SparseTSDFConfig
+
+    cfg = SparseTSDFConfig(voxel_size=0.05, sdf_trunc=0.15)
+    vols = {d: SparseTSDF(np.full(3, -2.4, np.float32), cfg, device=d)
+            for d in ("cpu", dev)}
+    for c2w, depth, rgb, f, cx, cy in _sphere_frames():
+        for d, vol in vols.items():
+            vol.integrate(torch.as_tensor(depth, device=d), rgb, c2w, f, f,
+                          cx, cy)
+    cpu, card = vols["cpu"], vols[dev]
+    n = cpu.n_slots
+    assert card.n_slots == n > 50
+    w0, w1 = cpu.weight[:n], card.weight[:n].cpu()
+    seen = (w0 > 0) | (w1 > 0)
+    wdiff = (w0 - w1).abs()[seen]
+    tdiff = (cpu.tsdf[:n] - card.tsdf[:n].cpu()).abs()[seen]
+    assert float((wdiff > 1e-5).float().mean()) <= 5e-3
+    assert float((tdiff > 1e-5).float().mean()) <= 5e-3
+    assert float(tdiff[wdiff == 0].max()) <= 0.25
+    v0, f0, _ = cpu.extract_mesh()
+    v1, f1, _ = card.extract_mesh()
+    assert abs(len(v1) - len(v0)) <= 0.01 * len(v0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver,res", [("fft", 48), ("cg", 64)])
+def test_poisson_card_matches_cpu(dev, solver, res):
+    from dnsplatter_torch.mesh.poisson import PoissonConfig, poisson_field
+
+    rng = np.random.default_rng(0)
+    d = rng.normal(size=(5000, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    pts = (0.8 * d + 0.01 * rng.normal(size=d.shape)).astype(np.float32)
+    cfg = PoissonConfig(resolution=res, solver=solver)
+    cpu = poisson_field(pts, d, cfg, device="cpu")[0]
+    card = poisson_field(pts, d, cfg, device=dev)[0].cpu()
+    scale = float(cpu.abs().max())
+    assert float((card - cpu).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_density_and_mesh_depth_card_match_cpu(dev):
+    from dnsplatter_torch.eval.mesh_render import render_mesh_depth
+    from dnsplatter_torch.mesh.marching import marching_tetrahedra
+    from dnsplatter_torch.models.gaussians import params_to_numpy, \
+        params_from_numpy
+    from dnsplatter_torch.models.sugar import get_closest_gaussians, \
+        get_density
+
+    gt, alive = make_gt_gaussians(np.random.default_rng(1), 2000,
+                                  device="cpu")
+    card = params_from_numpy(params_to_numpy(gt), device=dev)
+    q = np.random.default_rng(2).uniform(-1, 1, (20000, 3)).astype(
+        np.float32)
+    closest = get_closest_gaussians(q, gt, alive)
+    want = get_density(q, gt, alive, closest, clamp=False)
+    got = get_density(q, card, alive.to(dev), closest, clamp=False).cpu()
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+    g = np.linspace(-1, 1, 40)
+    x, y, z = np.meshgrid(g, g, g, indexing="ij")
+    v, f = marching_tetrahedra(np.sqrt(x ** 2 + y ** 2 + z ** 2) - 0.7,
+                               backend="numpy")
+    v = (v / 39 * 2 - 1).astype(np.float32)
+    for cam in ring_cameras(3, radius=2.5, width=160, img_height=120,
+                            focal=120.0, device="cpu"):
+        z0 = render_mesh_depth(v, f, cam, device="cpu")
+        z1 = render_mesh_depth(v, f, cam, device=dev)
+        h0, h1 = np.isfinite(z0), np.isfinite(z1)
+        assert h0.mean() > 0.1 and (h0 != h1).mean() <= 1e-3
+        both = h0 & h1
+        assert np.abs(z1[both] - z0[both]).max() <= 1e-5 * z0[both].max()
+
+
+@pytest.mark.cuda
+def test_native_marching_built_into_the_port(dev):
+    from dnsplatter_torch import native
+    from dnsplatter_torch.mesh.marching import marching_tetrahedra
+
+    g = np.linspace(-1, 1, 30)
+    x, y, z = np.meshgrid(g, g, g, indexing="ij")
+    field = (np.sqrt(x ** 2 + y ** 2 + z ** 2) - 0.6).astype(np.float32)
+    got = marching_tetrahedra(field, backend="native")
+    assert native.available(), native.build_error()
+    path = native.library_path()
+    assert path.exists() and path.parent.name == "_build"
+    assert path.parent.parent.name == "dnsplatter_torch"
+    # the same surface as the numpy path, in its own vertex order
+    want = marching_tetrahedra(field, backend="numpy")
+    assert len(got[0]) == len(want[0]) and len(got[1]) == len(want[1])
+    c = np.array([14.5, 14.5, 14.5])
+    np.testing.assert_allclose(np.sort(np.linalg.norm(got[0] - c, axis=1)),
+                               np.sort(np.linalg.norm(want[0] - c, axis=1)),
+                               atol=1e-4)

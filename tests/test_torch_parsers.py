@@ -470,7 +470,11 @@ def test_mushroom_autogeneration_matches_jax(tmp_path):
 
 
 def test_unknown_parser_names_the_roadmap_item():
-    with pytest.raises(KeyError, match="ROADMAP.md queue A item 8"):
+    # utils/plugins.py (ROADMAP.md queue A item 8) has landed: a name
+    # outside the seven is looked up in the entry-point group first, and
+    # only then refused with the known names
+    with pytest.raises(KeyError, match="unknown dataparser 'no-such-parser'"
+                       ".*mushroom"):
         t_get_parser("no-such-parser")
 
 
@@ -721,9 +725,18 @@ def test_seed_cloud_builders_match_jax(tmp_path):
         assert (got[2] is None) == (want[2] is None)
         if want[2] is not None:
             np.testing.assert_allclose(got[2], want[2], atol=NORMAL_TOL)
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
-        tpu.generate_iphone_pointcloud(cap, tmp_path / "x.ply", 100,
-                                       use_tsdf=True)
+    # the TSDF route (mesh/tsdf.py, ROADMAP.md queue A item 9) has landed:
+    # the same cloud as the JAX package's (colours through 8-bit PLY)
+    tpu.generate_iphone_pointcloud(cap, tmp_path / "tt.ply", 100,
+                                   use_tsdf=True, device="cpu")
+    jpu.generate_iphone_pointcloud(cap, tmp_path / "jt.ply", 100,
+                                   use_tsdf=True)
+    a, b = tio.read_ply(tmp_path / "tt.ply"), jio.read_ply(tmp_path / "jt.ply")
+    assert sorted(a) == sorted(b) and len(a["points"]) == 100
+    np.testing.assert_allclose(a["points"], b["points"], rtol=0,
+                               atol=1e-5 * np.abs(b["points"]).max())
+    np.testing.assert_allclose(a["colors"], b["colors"], rtol=0,
+                               atol=1 / 255 + 1e-6)
     with pytest.raises(FileNotFoundError):
         tpu.backproject_rgbd_cloud(tmp_path, device="cpu")
 
