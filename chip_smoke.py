@@ -110,9 +110,9 @@ Phases (any failure raises and the script exits non-zero):
    capacity, every export frame's pair list checked to fit (`tsdf` and
    `o3dtsdf` sparse at 1 cm, `dn` with FFT Poisson at 192 and its TSDF,
    `gaussians` with CG Poisson at 256, `sugar-coarse`, `isofusion` on the
-   adaptive octree, `marching` at 128 and level 0.1), each mesh's
-   vertices finite and its faces indexing them, the renders' launches
-   exact, the seconds split into named host work (KD-trees, brick
+   adaptive octree, `marching` at 128 and level 0.1; every marching
+   native), each mesh's vertices finite and its faces indexing them, the
+   renders' launches exact, the seconds split into named host work (KD-trees, brick
    hashing and extraction, marching, clustering, smoothing, the octree)
    and the rest; then a reference mesh fused from the capture's own depth
    frames in the parser's frame by `mesh/tsdf.py` (the route of
@@ -1617,10 +1617,11 @@ EXPORT_MODES = (
     # a level with 100 points or fewer gets no Poisson mesh
     ("sugar-coarse", (), ("sugar_level_*_poisson_mesh.ply",)),
     ("isofusion", (), ("IsoFusion_mesh.ply",)),
-    # a 13-step model's density stays under the default level of 0.5
-    ("marching", ("--resolution", "128", "--level", "0.1"),
-     ("MarchingCubes_mesh.ply",)),
+    ("marching", ("--resolution", "128"), ("MarchingCubes_mesh.ply",)),
 )
+# The `marching` export's density level: a 13-step model's density stays
+# under the exporter's default of 0.5, which leaves no surface at all.
+MARCHING_LEVEL = 0.1
 
 
 class HostTimers:
@@ -1722,8 +1723,29 @@ def run_cli_mesh(dev, gpu, tmp: Path):
     defaults, TensorBoard on), `cli eval` of the val split with both
     protocols, `cli export` in all seven modes at the audited pair capacity,
     then the meshes scored against one fused from the capture's own depth
-    frames. Returns (summary, [], launches)."""
+    frames. Every marching of the phase takes the native backend, so a
+    library that did not build fails the phase instead of falling back to
+    numpy. Returns (summary, [], launches)."""
+    import functools
+
+    from dnsplatter_torch import native
+    from dnsplatter_torch.mesh import marching
+
+    if not native.available():
+        raise AssertionError("[cli] native marching did not build: "
+                             f"{native.build_error()}")
+    log(f"[cli] native marching: {native.library_path()}")
+    with mock.patch.object(marching, "marching_tetrahedra", functools.partial(
+            marching.marching_tetrahedra, backend="native")):
+        summary, fails, launches = cli_mesh_chain(dev, gpu, tmp)
+    summary["native_marching"] = native.library_path().name
+    return summary, fails, launches
+
+
+def cli_mesh_chain(dev, gpu, tmp: Path):
+    """The body of phase 9 (see `run_cli_mesh`)."""
     import contextlib
+    import functools
 
     import numpy as np
     import torch
@@ -1734,6 +1756,7 @@ def run_cli_mesh(dev, gpu, tmp: Path):
     from dnsplatter_torch.eval.mesh_metrics import evaluate_mesh
     from dnsplatter_torch.eval.mesh_mushroom import evaluate_mesh_mushroom
     from dnsplatter_torch.eval.evaluator import eval_raster_config
+    from dnsplatter_torch.mesh import exporters
     from dnsplatter_torch.ops import rasterize_cuda as rc
     from dnsplatter_torch.train.trainer import Trainer
     from dnsplatter_torch.utils.writers import read_tfevents_scalars
@@ -1849,7 +1872,11 @@ def run_cli_mesh(dev, gpu, tmp: Path):
     for mode, extra, meshes in EXPORT_MODES:
         out = tmp / "exports" / mode
         rc.LAUNCHES.clear()
-        with HostTimers() as host, contextlib.redirect_stdout(sys.stderr):
+        level = mock.patch.object(exporters, "export_marching",
+                                  functools.partial(exporters.export_marching,
+                                                    level=MARCHING_LEVEL))
+        with (level if mode == "marching" else contextlib.nullcontext()), \
+                HostTimers() as host, contextlib.redirect_stdout(sys.stderr):
             t0 = sync_now()
             cli.cmd_export([mode, "--checkpoint", str(ckpts[0]), *data,
                             "--output-dir", str(out), "--pair-capacity",

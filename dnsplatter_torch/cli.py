@@ -14,9 +14,7 @@ lives here, with the JAX package's flags:
 Every command runs on the card; `--device cpu` (the counterpart of the
 JAX package's JAX_PLATFORMS=cpu) runs it on the CPU. `export` takes
 `--pair-capacity` as `eval` does: the renders' pair-list capacity, which a
-scene of a million Gaussians at 1024x576 outgrows at the default 2^21; and
-`--level`, the density level of the `marching` isosurface (the JAX
-package's fixed 0.5 by default).
+scene of a million Gaussians at 1024x576 outgrows at the default 2^21.
 """
 
 from __future__ import annotations
@@ -196,8 +194,6 @@ def cmd_export(argv):
     p.add_argument("--poisson-resolution", type=int, default=192)
     p.add_argument("--pair-capacity", type=int, default=1 << 21,
                    help="intersection-list capacity for the renders")
-    p.add_argument("--level", type=float, default=0.5,
-                   help="density level of the marching isosurface")
     _add_device_arg(p)
     parser_cls = _add_parser_args(p, argv)
     args = p.parse_args(argv)
@@ -233,7 +229,7 @@ def cmd_export(argv):
                                  **cap)
     else:
         out = E.export_marching(params, alive, data, args.output_dir,
-                                resolution=args.resolution, level=args.level)
+                                resolution=args.resolution)
     print(f"exported: {out}")
     return out
 

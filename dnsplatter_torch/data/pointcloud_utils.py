@@ -185,38 +185,27 @@ def tsdf_fuse_frames(frames, voxel: float = 0.04, trunc: float = 0.2,
     return T.extract_mesh(vol)
 
 
-def tsdf_fused_mesh(capture_dir: Path, depth_scale: float = 1e-3,
-                    voxel: float = 0.04, trunc: float = 0.2,
-                    max_frames: int = 60, resolution_cap: int = 192,
-                    device=None):
-    """`tsdf_fuse_frames` of the train RGB-D frames of a capture, in its
-    own frame (metres)."""
-    meta = _load_frames_meta(capture_dir)
-    frames = _cap_frames(_train_frames(capture_dir, meta), max_frames)
-    loaded = [f for f in (_load_rgbd_frame(capture_dir, meta, fr, depth_scale)
-                          for fr in frames) if f is not None]
-    if not loaded:
-        raise FileNotFoundError(f"no RGB-D frames under {capture_dir}")
-    return tsdf_fuse_frames(loaded, voxel, trunc, resolution_cap,
-                            device=device)
-
-
 def tsdf_fused_cloud(capture_dir: Path, num_points: int = 1_000_000,
                      depth_scale: float = 1e-3, voxel: float = 0.04,
                      trunc: float = 0.2, max_frames: int = 60,
                      resolution_cap: int = 192, device=None
                      ) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
     """The TSDF-fusion route (the reference's o3d ScalableTSDFVolume call,
-    voxel 0.04 / trunc 0.2): the surface of `tsdf_fused_mesh`, sampled on
-    the host; the samples carry the nearest vertex's colour and their
-    face's normal."""
+    voxel 0.04 / trunc 0.2): `tsdf_fuse_frames` of the capture's train
+    RGB-D frames, in its own frame (metres), sampled on the host; the
+    samples carry the nearest vertex's colour and their face's normal."""
     from scipy.spatial import cKDTree
 
     from dnsplatter_torch.eval.mesh_metrics import sample_surface
 
-    verts, faces, colors = tsdf_fused_mesh(capture_dir, depth_scale, voxel,
-                                           trunc, max_frames, resolution_cap,
-                                           device=device)
+    meta = _load_frames_meta(capture_dir)
+    frames = _cap_frames(_train_frames(capture_dir, meta), max_frames)
+    loaded = [f for f in (_load_rgbd_frame(capture_dir, meta, fr, depth_scale)
+                          for fr in frames) if f is not None]
+    if not loaded:
+        raise FileNotFoundError(f"no RGB-D frames under {capture_dir}")
+    verts, faces, colors = tsdf_fuse_frames(loaded, voxel, trunc,
+                                            resolution_cap, device=device)
     if len(faces) == 0:
         raise RuntimeError("TSDF fusion produced an empty surface")
     pts, nrm = sample_surface(verts, faces, num_points, seed=0)

@@ -8,10 +8,11 @@ Tolerances: point clouds of equal size with points, colours and normals rel
 through 8 bits in the PLY, one step apart at most); meshes with vertex counts
 within 1% and a symmetric Chamfer distance of at most half a voxel (or grid
 step) of the export; `find_depth_edges` equal. The dense route of
-`isofusion` allows 3% in the counts: a voxel that one frame sees head-on
+`isofusion` allows 2% in the counts: a voxel that one frame sees head-on
 gets a weight of ~1.0 there, the extraction's `min_weight`, so rounding at
-1e-7 decides whether it counts as observed (measured: 1-1.6% apart, even
-when both packages fuse the JAX package's own renders).
+1e-7 decides whether it counts as observed (measured: vertex counts 1.6%
+apart on this scene, 947 against 962, faces 0.2%; 1-1.6% even when both
+packages fuse the JAX package's own renders).
 
 The JAX exporters render at a fixed pair capacity of 2^21; the port's take
 `pair_capacity` (default 2^21). `test_export_pair_capacity` shows why: a
@@ -270,7 +271,7 @@ def test_export_isofusion_matches_jax(scene, adaptive):
     span = 2 * 4.5 + 6.0  # camera ring +- (depth_max + margin)
     step = span / (24 * 4) if adaptive else 0.2
     _same_mesh(td_ / "IsoFusion_mesh.ply", jd_ / "IsoFusion_mesh.ply", step,
-               count_rtol=0.01 if adaptive else 0.03)
+               count_rtol=0.01 if adaptive else 0.02)
 
 
 def test_export_marching_matches_jax(scene):

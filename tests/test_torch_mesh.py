@@ -8,10 +8,12 @@ Tolerances:
     sides, each package's own build of the same C++ source): equal;
   * dense TSDF: tsdf, weights and colours rel 1e-5, faces equal;
   * sparse TSDF: bit-equal to the dense port at a matched voxel; against the
-    JAX package's sparse volume the same bricks, and weights and tsdf within
-    1e-5 on all but 0.5% of the observed voxels. That volume's jitted update
-    rounds some voxel centres through a fused multiply-add (XLA contracts
-    two of the three coordinates), so a voxel a hair from a pixel boundary
+    JAX package's sparse volume the same bricks, and weights within 1e-5 on
+    all but 0.01% of the observed voxels, tsdf on all but 0.05% (measured
+    on these inputs: 2 and 16 of 43,848 voxels, 0.005% and 0.036%). That
+    volume's jitted update rounds some voxel centres through a fused
+    multiply-add (XLA contracts two of the three coordinates), so a voxel
+    a hair from a pixel boundary
     can sample the neighbouring pixel's depth, and one a hair from the
     truncation band's edge can fall on its other side; the tsdf of those
     voxels stays within one pixel's depth step over the truncation (0.25);
@@ -213,9 +215,9 @@ def test_sparse_tsdf_matches_jax_and_dense(monkeypatch):
     np.testing.assert_array_equal(ts.keys_np[:n], js.keys_np[:n])
     seen = (ts.weight[:n].numpy() > 0) | (np.asarray(js.weight)[:n] > 0)
     wdiff = np.abs(ts.weight[:n].numpy() - np.asarray(js.weight)[:n])[seen]
-    assert (wdiff > RTOL).mean() <= 5e-3, (wdiff > RTOL).sum()
+    assert (wdiff > RTOL).mean() <= 1e-4, (wdiff > RTOL).sum()
     diff = np.abs(ts.tsdf[:n].numpy() - np.asarray(js.tsdf)[:n])[seen]
-    assert (diff > RTOL).mean() <= 5e-3, (diff > RTOL).sum()
+    assert (diff > RTOL).mean() <= 5e-4, (diff > RTOL).sum()
     assert diff[wdiff == 0].max() <= 0.25
 
     # the dense port at the matched voxel: every brick voxel bit-equal
