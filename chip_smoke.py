@@ -120,10 +120,36 @@ Phases (any failure raises and the script exits non-zero):
    the `tsdf`, `dn` and `isofusion` meshes scored by `evaluate_mesh`
    and the `dn` mesh by `evaluate_mesh_mushroom`, every metric finite.
 
+10. Monocular priors on the same capture, with phase 9's checkpoint and
+   reference mesh (written as a PLY): DPT-Hybrid (`DPTHybridConfig(
+   out_channels=3)`), DSINE with B5 and ZoeDepth-NYU (`ZoeDepthNYUConfig()`)
+   at their published widths with seeded weights (N(0, 0.02) products,
+   zero biases), each profiled on the card at the scripts' shapes (median
+   of five forwards between CUDA events, FLOPs of its products and
+   convolutions by torch.utils.flop_counter, the bound at 67 TFLOP/s
+   float32, peak memory) and written as an npz; then, through the
+   scripts' `main`, `normals_from_pretrain` (omnidata into
+   normals_from_pretrain/, `--hd` and `--model-type dsine` into folders of
+   their own), `depth_from_pretrain` with the sensor depths and
+   `align_depth` over the long capture's ten frames: every map finite at
+   1024x576, the HD and DSINE normals unit within 1e-3, the omnidata maps
+   in [0, 1], the depths in [min_depth, max_depth]. Each network at a
+   narrow width with the same weights on the card and on the CPU (within
+   1e-4 of the output's largest magnitude; twice on the card, the spread
+   reported). The capture re-parsed (normals from normals_from_pretrain/)
+   and trained on with depth and normal losses, 3 + 5 counted steps, the
+   four step kernels once a step. `cli render` of phase 9's checkpoint at
+   its audited pair capacity (the expansion and forward_tiles once a frame
+   plus one warm-up), its tree and depth colormaps checked, `vis_errors`
+   and `compare_normals` on it; `render_gt_normals` and
+   `render_faro_depth` of the reference mesh along the train cameras, and
+   `compare_normals` between the priors and those normals. One JSON line
+   per network.
+
 Prints one JSON line per kernel and scene, one per scene (the MuSHRoom
-path's and the CLI's among them), the script's seconds, a `kernels` line
-whose launch counts sum the main paths of phases 2-5, 8 and 9, the card's
-name and power limit, and last
+path's, the CLI's and the priors' among them), the script's seconds, a
+`kernels` line whose launch counts sum the main paths of phases 2-5 and
+8-10, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Needs CUDA: without it, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
@@ -1913,6 +1939,8 @@ def cli_mesh_chain(dev, gpu, tmp: Path):
          for c, b in (train_data.get(i) for i in range(len(train_data)))],
         voxel=0.04 * scale, trunc=0.2 * scale, reach=4.0 * scale)
     seconds["reference_mesh"] = sync_now() - t0
+    reference_path = tmp / "reference_mesh.ply"
+    io.write_ply(reference_path, gt_v, faces=gt_f)
     t0 = sync_now()
     cloud = pu.tsdf_fused_cloud(long_dir)
     seconds["tsdf_fused_cloud"] = sync_now() - t0
@@ -1951,6 +1979,8 @@ def cli_mesh_chain(dev, gpu, tmp: Path):
     summary = {
         "scene": "cli_mesh_1m", "width": WIDTH, "height": HEIGHT,
         "capacity": n_seeds, "alive": n_alive, "steps": CLI_STEPS,
+        "checkpoint": str(ckpts[0]),
+        "reference_mesh_path": str(reference_path),
         "train_ms_per_step": statistics.median(step_ms),
         "train_ms_per_step_min": min(step_ms),
         "train_ms_per_step_max": max(step_ms),
@@ -1968,6 +1998,453 @@ def cli_mesh_chain(dev, gpu, tmp: Path):
         "gpu": gpu,
     }
     return summary, [], launches
+
+
+# Phase 10: monocular priors over phase 8's capture, training on them, and
+# `cli render` of phase 9's checkpoint.
+PRIOR_STEPS = 5
+FP32_PEAK_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
+# card against CPU at the narrow widths, of each output's largest magnitude
+# (float32 both sides, TF32 off on the card)
+PRIOR_CARD_TOL = 1e-4
+UNIT_TOL = 1e-3
+
+
+def prior_networks():
+    """(name, maker of the published network from a seed, the input of
+    one forward at the scripts' shapes, forwards a frame) of the three
+    networks."""
+    from dnsplatter_torch.priors import dpt, dsine, zoedepth
+
+    return (
+        ("dpt_hybrid_omnidata", lambda dev, seed: dpt.load_model(
+            cfg=dpt.DPTHybridConfig(out_channels=3), device=dev, seed=seed),
+         lambda m, dev: (torch_rand(dev, (1, 3, 384, 384)),), 1),
+        ("dsine_b5", lambda dev, seed: dsine.load_model(device=dev,
+                                                        seed=seed),
+         lambda m, dev: (torch_rand(dev, (1, 3, HEIGHT, WIDTH)),
+                         dsine_intrinsics(dev)), 1),
+        ("zoedepth_nyu", lambda dev, seed: zoedepth.load_model(
+            device=dev, seed=seed),
+         lambda m, dev: (torch_rand(dev, (1, 3) + zoedepth.NET_HW),), 2),
+    )
+
+
+def torch_rand(dev, shape):
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    return torch.rand(shape, generator=g, device=dev)
+
+
+def dsine_intrinsics(dev):
+    import torch
+
+    from dnsplatter_torch.priors.dsine import intrins_from_fov
+
+    return torch.as_tensor(intrins_from_fov(60.0, HEIGHT, WIDTH)[None],
+                           device=dev)
+
+
+def event_ms(fn, reps: int = 5) -> list:
+    """ms of each of `reps` calls between CUDA events, after one warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return times
+
+
+def forward_profile(model, inputs) -> dict:
+    """Median ms of one forward between CUDA events (one warm-up, then five
+    timed), its FLOPs counted from the shapes of its products and
+    convolutions (torch.utils.flop_counter), and the peak memory; then,
+    timed only, the same forward with TF32 allowed in products and
+    convolutions (the flags restored after)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from dnsplatter_torch.priors.common import strict_fp32
+
+    with torch.inference_mode():
+        with strict_fp32():
+            model(*inputs)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = event_ms(lambda: model(*inputs))
+            peak = torch.cuda.max_memory_allocated()
+            counter = FlopCounterMode(display=False)
+            with counter:
+                model(*inputs)
+        matmul = torch.backends.cuda.matmul
+        was = matmul.allow_tf32
+        matmul.allow_tf32 = True
+        try:
+            with torch.backends.cudnn.flags(
+                    enabled=True, benchmark=torch.backends.cudnn.benchmark,
+                    deterministic=torch.backends.cudnn.deterministic,
+                    allow_tf32=True):
+                tf32 = event_ms(lambda: model.forward(*inputs))
+        finally:
+            matmul.allow_tf32 = was
+    return {"forward_ms": statistics.median(times),
+            "forward_ms_min": min(times), "forward_ms_max": max(times),
+            "forward_flops": int(counter.get_total_flops()),
+            "peak_memory_bytes": int(peak),
+            "forward_ms_tf32_allowed": statistics.median(tf32)}
+
+
+def dpt_head_conv_ms(model, dev) -> dict:
+    """The DPT head's first convolution at the omnidata operating point
+    (256 -> 128 channels, 3x3, 192x192), float32 without TF32, through
+    cuDNN and through PyTorch's own convolution (the route the network
+    takes; dpt.DPTHybrid.head_forward): median ms between CUDA events."""
+    import torch
+
+    from dnsplatter_torch.priors.common import strict_fp32, without_cudnn
+
+    conv = model.head.head[0]
+    x = torch_rand(dev, (1, conv.in_channels, 192, 192))
+    with torch.inference_mode():
+        with strict_fp32():
+            cudnn = event_ms(lambda: conv(x), reps=3)
+        with without_cudnn():
+            own = event_ms(lambda: conv(x), reps=3)
+    return {"cudnn_fp32_ms": statistics.median(cudnn),
+            "pytorch_fp32_ms": statistics.median(own)}
+
+
+def prior_small_cases() -> dict:
+    """name -> (narrow module maker, input shape, takes intrinsics): the
+    networks of the CPU parity tests."""
+    import dataclasses
+
+    from dnsplatter_torch.priors import dpt, dsine, zoedepth
+
+    return {
+        "dpt_hybrid_omnidata": (lambda: dpt.DPTHybrid(dataclasses.replace(
+            dpt.SMALL_CONFIG, out_channels=3)), (1, 3, 96, 96), False),
+        "dsine_b5": (lambda: dsine.DSINE(nf=64, feature_dim=16,
+                                         hidden_dim=16, head_hidden=32,
+                                         nrn_hidden=16), (1, 3, 64, 96),
+                     True),
+        "zoedepth_nyu": (lambda: zoedepth.ZoeDepth(zoedepth.SMALL_CONFIG),
+                         (1, 3, 128, 160), False),
+    }
+
+
+def card_vs_cpu(dev, names=None) -> dict:
+    """Each network (of `names`, default all) at its narrow test width
+    with the same weights on the card and on the CPU (largest difference
+    over the output's largest magnitude), and twice on the card (largest
+    difference). Raises beyond PRIOR_CARD_TOL."""
+    import numpy as np
+    import torch
+
+    from dnsplatter_torch.priors import common as C
+
+    k = torch.as_tensor([[[80.0, 0, 47.5], [0, 80.0, 31.5], [0, 0, 1]]])
+    cases = prior_small_cases()
+    out = {}
+    for name in names or sorted(cases):
+        make, shape, intrins = cases[name]
+        x = np.random.default_rng(0).uniform(size=shape).astype(np.float32)
+        runs = {}
+        for where in ("cpu", "cuda", "cuda2"):
+            d = torch.device("cpu" if where == "cpu" else dev)
+            model = make().to(d).eval()
+            C.params_from_numpy(model, C.random_arrays(model, 1))
+            args = (torch.as_tensor(x, device=d),)
+            if intrins:
+                args += (k.to(d),)
+            with torch.inference_mode(), C.strict_fp32():
+                y = model(*args)
+            runs[where] = (y[-1] if intrins else y).cpu().numpy()
+        scale = float(np.abs(runs["cpu"]).max())
+        err = float(np.abs(runs["cuda"] - runs["cpu"]).max()) / scale
+        spread = float(np.abs(runs["cuda"] - runs["cuda2"]).max())
+        if not (np.isfinite(runs["cuda"]).all() and err <= PRIOR_CARD_TOL):
+            raise AssertionError(f"[priors] {name} card vs CPU: {err} of "
+                                 f"the output's scale {scale}")
+        out[name] = {"card_vs_cpu_rel": err, "card_twice_max_abs": spread,
+                     "shape": list(shape)}
+    return out
+
+
+def check_maps(folder: Path, frames: int, pattern: str = "*.png") -> int:
+    """Every map in `folder` finite and of the frame's size."""
+    import numpy as np
+
+    from dnsplatter_torch.data import io
+
+    paths = sorted(folder.glob(pattern))
+    if len(paths) != frames:
+        raise AssertionError(f"[priors] {folder.name}: {len(paths)} maps, "
+                             f"expected {frames}")
+    for p in paths:
+        m = np.load(p) if p.suffix == ".npy" else io.read_image(p)
+        if m.shape[:2] != (HEIGHT, WIDTH) or not np.isfinite(m).all():
+            raise AssertionError(f"[priors] {p}: shape {m.shape} or not "
+                                 "finite")
+    return len(paths)
+
+
+def run_priors(dev, gpu, tmp: Path, cli_summary: dict):
+    """Phase 10: the three prior networks at their published widths with
+    seeded weights, through the scripts over phase 8's capture (omnidata,
+    its HD merge, DSINE, ZoeDepth with sensor alignment, align_depth),
+    each network timed, counted and held card against CPU at a narrow
+    width; the capture re-parsed with the priors and trained on (3 + 5
+    counted steps); `cli render` of phase 9's checkpoint, vis_errors and
+    compare_normals on its tree; the reference mesh's normals and depths
+    along the cameras. Returns (summary, [], launches)."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from dnsplatter_torch import cli
+    from dnsplatter_torch.data.parsers import get_parser
+    from dnsplatter_torch.data.parsers.mushroom import MushroomParserConfig
+    from dnsplatter_torch.models.dn_model import ModelConfig
+    from dnsplatter_torch.ops import rasterize_cuda as rc
+    from dnsplatter_torch.priors import common as C
+    from dnsplatter_torch.priors import dpt, dsine
+    from dnsplatter_torch.priors.zoedepth import ZoeDepthNYUConfig
+    from dnsplatter_torch.scripts import (align_depth, compare_normals,
+                                          depth_from_pretrain, normals_hd,
+                                          normals_from_pretrain,
+                                          render_faro_depth,
+                                          render_gt_normals, vis_errors)
+    from dnsplatter_torch.train.trainer import Trainer
+
+    long_dir = tmp / "iphone" / "long_capture"
+    frames = MUSHROOM_LONG
+    seconds, nets = {}, {}
+
+    def sync_now() -> float:
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    t_phase = sync_now()
+    # -- the networks: seeded weights at the published widths, profiled on
+    # the card, written as npz for the scripts --
+    weights = tmp / "prior_weights"
+    weights.mkdir()
+    for seed, (name, make, inputs, per_frame) in enumerate(prior_networks()):
+        t0 = sync_now()
+        model = make(dev, seed)
+        build_s = sync_now() - t0
+        prof = forward_profile(model, inputs(model, dev))
+        if name.startswith("dpt"):
+            prof["head_conv"] = dpt_head_conv_ms(model, dev)
+        t0 = time.perf_counter()
+        np.savez(weights / f"{name}.npz", **C.state_arrays(model))
+        nets[name] = {
+            "params": int(sum(p.numel() for p in model.parameters())),
+            "build_s": build_s, "npz_write_s": time.perf_counter() - t0,
+            "forwards_per_frame": per_frame,
+            "input_shape": list(inputs(model, dev)[0].shape), **prof,
+            "ms_per_frame": prof["forward_ms"] * per_frame,
+            "flops_per_frame": prof["forward_flops"] * per_frame,
+            "bound_ms_per_frame": prof["forward_flops"] * per_frame
+            / FP32_PEAK_FLOPS * 1e3, "bound_by": "operations"}
+        del model
+        torch.cuda.empty_cache()
+        log(f"[priors] {name}: {nets[name]}")
+    seconds["networks"] = sync_now() - t_phase
+
+    # -- the scripts over the capture, their float outputs captured --
+    captured = {"omnidata": [], "hd": [], "dsine": []}
+
+    def capture(key, fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            captured[key].append(np.asarray(out))
+            return out
+        return call
+
+    data = ["--data", str(long_dir)]
+    runs = (
+        ("dpt_hybrid_omnidata", "normals_from_pretrain",
+         lambda: normals_from_pretrain.main(
+             data + ["--ckpt", str(weights / "dpt_hybrid_omnidata.npz")])),
+        ("dpt_hybrid_omnidata_hd", "normals_hd", lambda: normals_from_pretrain
+         .main(data + ["--ckpt", str(weights / "dpt_hybrid_omnidata.npz"),
+                       "--hd", "--output-dir", str(long_dir / "normals_hd")])),
+        ("dsine_b5", "normals_dsine", lambda: normals_from_pretrain.main(
+            data + ["--ckpt", str(weights / "dsine_b5.npz"), "--model-type",
+                    "dsine", "--output-dir", str(long_dir / "normals_dsine")])),
+        ("zoedepth_nyu", "mono_depth", lambda: depth_from_pretrain.main(
+            data + ["--ckpt", str(weights / "zoedepth_nyu.npz"),
+                    "--sensor-dir", str(long_dir / "depth")])),
+    )
+    with mock.patch.object(dpt, "run_normals",
+                           capture("omnidata", dpt.run_normals)), \
+            mock.patch.object(normals_hd, "predict_normals_hd",
+                              capture("hd", normals_hd.predict_normals_hd)), \
+            mock.patch.object(dsine, "predict_normals",
+                              capture("dsine", dsine.predict_normals)), \
+            contextlib.redirect_stdout(sys.stderr):
+        for name, folder, run in runs:
+            t0 = sync_now()
+            n = run()
+            seconds[f"script_{name}"] = sync_now() - t0
+            if n != frames:
+                raise AssertionError(f"[priors] {name} wrote {n} frames")
+            # mono_depth: the predictions, not yet the *_aligned maps
+            check_maps(long_dir / folder, frames,
+                       "*[!d].npy" if folder == "mono_depth" else "*.png")
+        t0 = sync_now()
+        align_depth.main(data)
+        seconds["align_depth"] = sync_now() - t0
+    for name, _, _ in runs:
+        key = name if name in nets else "dpt_hybrid_omnidata"
+        nets[key][f"script_ms_per_frame{name[len(key):]}"] = (
+            seconds[f"script_{name}"] * 1e3 / frames)
+    # the omnidata maps are the clamped raw output; the others unit
+    # (the HD route's patches among them)
+    for omni in captured["omnidata"]:
+        if not (np.isfinite(omni).all() and omni.min() >= 0
+                and omni.max() <= 1):
+            raise AssertionError("[priors] an omnidata map is not finite "
+                                 "in [0, 1]")
+    omni_calls = len(captured["omnidata"])
+    unit_err = {}
+    for key in ("hd", "dsine"):
+        maps = np.stack(captured[key])
+        if maps.shape != (frames, HEIGHT, WIDTH, 3):
+            raise AssertionError(f"[priors] {key} maps {maps.shape}")
+        unit_err[key] = float(np.abs(np.linalg.norm(maps, axis=-1)
+                                     - 1.0).max())
+        if not unit_err[key] <= UNIT_TOL:
+            raise AssertionError(f"[priors] {key} normals off unit by "
+                                 f"{unit_err[key]}")
+    cfg = ZoeDepthNYUConfig()
+    depth = np.stack([np.load(p) for p in sorted(
+        (long_dir / "mono_depth").glob("*.npy")) if "_aligned" not in p.name])
+    depth_range = [float(depth.min()), float(depth.max())]
+    if not cfg.min_depth <= depth_range[0] <= depth_range[1] <= cfg.max_depth:
+        raise AssertionError(f"[priors] depths span {depth_range}")
+    check_maps(long_dir / "mono_depth", frames, "*_aligned.npy")
+    log(f"[priors] scripts: {seconds}")
+
+    t0 = sync_now()
+    card_cpu = card_vs_cpu(dev)
+    seconds["card_vs_cpu"] = sync_now() - t0
+
+    # -- train on the priors: the parser takes normals_from_pretrain/ --
+    parse = get_parser("mushroom")
+    t0 = sync_now()
+    train_ds = parse(MushroomParserConfig(data=tmp,
+                                          load_depth_confidence_masks=True),
+                     "train")
+    seconds["parse"] = sync_now() - t0
+    sources = {f.normal_path.parent.name for f in train_ds.frames}
+    if sources != {"normals_from_pretrain"}:
+        raise AssertionError(f"[priors] normals parsed from {sources}")
+    t0 = sync_now()
+    with contextlib.redirect_stdout(sys.stderr):
+        trainer = Trainer(train_ds, train_ds.seed(), model_cfg=ModelConfig(
+            use_depth_loss=True, depth_lambda=0.2, use_normal_loss=True))
+
+    def one_step():
+        with contextlib.redirect_stdout(sys.stderr):
+            return trainer.train(1, log_every=1 << 30)[-1]["loss"]
+
+    ms, losses, train_launches = timed_steps(
+        one_step, TRAIN_WARMUP, PRIOR_STEPS, STEP_KERNELS + REDUCERS)
+    want = expected_step_launches(PRIOR_STEPS, trainer.params.capacity,
+                                  "reduce_segments_bykey")
+    if train_launches != want:
+        raise AssertionError(f"[priors] train launches {train_launches}, "
+                             f"expected {want}")
+    del trainer
+    torch.cuda.empty_cache()
+    seconds["train"] = sync_now() - t0
+
+    # -- cli render of phase 9's checkpoint at the audited capacity --
+    cap = cli_summary["pair_capacity"]
+    renders = tmp / "renders"
+    eval_names = ("expand_segments", "expand_segments_stream",
+                  "forward_tiles")
+    rc.LAUNCHES.clear()
+    t0 = sync_now()
+    with contextlib.redirect_stdout(sys.stderr):
+        metrics = cli.cmd_render([
+            "--checkpoint", cli_summary["checkpoint"], "--dataparser",
+            "mushroom", "--data", str(tmp), "--split", "val",
+            "--parser.eval-mode", "all", "--pair-capacity", str(cap),
+            "--output-dir", str(renders)])
+    seconds["cli_render"] = sync_now() - t0
+    render_launches = {k: rc.LAUNCHES[k] for k in eval_names}
+    n_render = metrics["num_images"]
+    want = dict.fromkeys(eval_names, 0)
+    want["forward_tiles"] = want[expand_entry(
+        rc, cli_summary["capacity"]).__name__] = 1 + n_render
+    if render_launches != want:
+        raise AssertionError(f"[priors] render launches {render_launches}, "
+                             f"expected {want}")
+    for sub, pattern in (("pred/rgb", "*.png"), ("pred/normal", "*.png"),
+                         ("pred/depth", "*.npy"), ("gt/normal", "*.png"),
+                         ("pred/depth_colormaps", "*.png")):
+        check_maps(renders / sub, n_render, pattern)
+    with contextlib.redirect_stdout(sys.stderr):
+        t0 = time.perf_counter()
+        n_err = vis_errors.main(["--renders", str(renders)])
+        seconds["vis_errors"] = time.perf_counter() - t0
+        if n_err != 3 * n_render:
+            raise AssertionError(f"[priors] {n_err} error maps")
+        normal_err = compare_normals.main([
+            "--dir-a", str(renders / "gt" / "normal"),
+            "--dir-b", str(renders / "pred" / "normal")])
+
+        # -- the reference mesh along the capture's cameras --
+        mesh_args = ["--mesh", cli_summary["reference_mesh_path"], "--data",
+                     str(tmp), "--dataparser", "mushroom"]
+        t0 = sync_now()
+        n_ref = render_gt_normals.main(mesh_args + [
+            "--output-dir", str(tmp / "reference_normal")])
+        seconds["render_gt_normals"] = sync_now() - t0
+        t0 = sync_now()
+        n_depth = render_faro_depth.main(mesh_args + [
+            "--output-dir", str(tmp / "reference_depth")])
+        seconds["render_faro_depth"] = sync_now() - t0
+        prior_vs_mesh = compare_normals.main([
+            "--dir-a", str(long_dir / "normals_from_pretrain"),
+            "--dir-b", str(tmp / "reference_normal")])
+    check_maps(tmp / "reference_normal", n_ref)
+    check_maps(tmp / "reference_depth", n_depth)
+    if not (math.isfinite(normal_err) and math.isfinite(prior_vs_mesh)):
+        raise AssertionError("[priors] normal comparisons not finite")
+    seconds["phase"] = sync_now() - t_phase
+
+    summary = {
+        "scene": "priors_mushroom", "width": WIDTH, "height": HEIGHT,
+        "frames": frames, "networks": nets, "card_vs_cpu": card_cpu,
+        "unit_err": unit_err, "mono_depth_range": depth_range,
+        "omnidata_forwards": omni_calls,
+        "normal_sources": sorted(sources), "train_steps": PRIOR_STEPS,
+        "train_ms_per_step": statistics.median(ms), "train_losses": losses,
+        "render_frames": n_render, "render_pair_capacity": cap,
+        "render_normal_err_deg": normal_err,
+        "prior_vs_mesh_normal_err_deg": prior_vs_mesh,
+        "seconds": seconds, "launches_train": train_launches,
+        "launches_render": render_launches, "gpu": gpu,
+    }
+    for name, rep in nets.items():
+        print(json.dumps({"network": name, "gpu": gpu, **rep}), flush=True)
+    return summary, [], collections.Counter(train_launches) + \
+        collections.Counter(render_launches)
 
 
 def oracle_grad_check(dev):
@@ -2138,7 +2615,11 @@ def main() -> int:
         keep(*run_mushroom(dev, gpu, Path(tmp)))
         torch.cuda.empty_cache()
         # -- the CLI and the mesh chain on the same capture --
-        keep(*run_cli_mesh(dev, gpu, Path(tmp)))
+        cli_run = run_cli_mesh(dev, gpu, Path(tmp))
+        keep(*cli_run)
+        torch.cuda.empty_cache()
+        # -- monocular priors, training on them, cli render --
+        keep(*run_priors(dev, gpu, Path(tmp), cli_run[0]))
 
     src = "dnsplatter_torch/csrc/"
     pallas = "dnsplatter_tpu/ops/rasterize_pallas.py"

@@ -1,4 +1,4 @@
-"""Command-line interface: train / eval / export (counterpart of
+"""Command-line interface: train / eval / export / render (counterpart of
 dnsplatter_tpu/cli.py).
 
 The reference registers into nerfstudio's CLI (`ns-train dn-splatter
@@ -10,10 +10,12 @@ lives here, with the JAX package's flags:
     python -m dnsplatter_torch.cli eval --checkpoint runs/exp/ckpt_030000.npz \
         --dataparser mushroom --data <dir> --pair-capacity 6000000
     python -m dnsplatter_torch.cli export tsdf --checkpoint ... --data ...
+    python -m dnsplatter_torch.cli render --checkpoint ... --data ... \
+        --output-dir renders --pair-capacity 6000000
 
 Every command runs on the card; `--device cpu` (the counterpart of the
-JAX package's JAX_PLATFORMS=cpu) runs it on the CPU. `export` takes
-`--pair-capacity` as `eval` does: the renders' pair-list capacity, which a
+JAX package's JAX_PLATFORMS=cpu) runs it on the CPU. `export` and `render`
+take `--pair-capacity` as `eval` does: the renders' pair-list capacity, which a
 scene of a million Gaussians at 1024x576 outgrows at the default 2^21.
 """
 
@@ -235,10 +237,11 @@ def cmd_export(argv):
 
 
 def cmd_render(argv):
-    """Render dumps of a checkpoint (the reference's render_model role)."""
-    raise NotImplementedError(
-        "`render` needs scripts/render_model.py, which is not ported yet: "
-        "ROADMAP.md queue A item 12")
+    """Dump rgb/depth/normal renders of a checkpoint over a split
+    (scripts/render_model.py, the reference's render_model role)."""
+    from dnsplatter_torch.scripts import render_model
+
+    return render_model.main(argv)
 
 
 def gs_mesh_main():

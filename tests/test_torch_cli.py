@@ -2,8 +2,9 @@
 the dataclass flags, value parsing, entry-point plugins, the tfevents
 writer (crc32c, and files each package reads from the other), and one
 chain through `python -m dnsplatter_torch.cli` on the CPU: `train` on a
-48x48 MuSHRoom capture with TensorBoard on, `eval` with both protocols,
-`export dn`, then the MuSHRoom mesh protocol on the exported mesh (the port's
+48x48 MuSHRoom capture with TensorBoard on, `eval` with both protocols and
+`--save-renders`, `render` on the same checkpoint (its renders equal to
+eval's), `vis_errors` on its tree, `export dn`, then the MuSHRoom mesh protocol on the exported mesh (the port's
 counterpart of tests/test_e2e_protocol.py).
 
 Equality throughout, except the chain, which checks its outputs for
@@ -120,6 +121,10 @@ def fake_eps(monkeypatch):
     monkeypatch.setattr(tplugins, "iter_entry_points",
                         lambda group: table.get(group, []))
     before_methods = dict(tconfigs.METHOD_PRESETS)
+    # every built-in parser registered before the snapshot: get_parser
+    # imports (and so registers) them all, and a module imported during
+    # the test would not register again after the restore
+    tparsers.get_parser("mushroom")
     before_parsers = dict(tparsers.PARSERS)
     yield table
     tconfigs.METHOD_PRESETS.clear()
@@ -298,13 +303,39 @@ def test_cli_chain_on_the_cpu(tmp_path):
     _cli("eval", "--checkpoint", str(ckpts[-1]), "--dataparser", "mushroom",
          "--data", str(tmp_path), "--split", "val", "--pair-capacity",
          "4096", "--parser.eval-mode", "all", "--device", "cpu",
-         "--output-dir", str(tmp_path / "evald"))
+         "--output-dir", str(tmp_path / "evald"), "--save-renders")
     metrics = json.loads((tmp_path / "evald" / "metrics.json").read_text())
     for key in ("within_rgb_psnr", "with_rgb_psnr", "rgb_psnr",
                 "within_depth_rmse", "with_depth_rmse"):
         assert np.isfinite(metrics[key]), key
     assert metrics["within_num_images"] == 1
     assert metrics["with_num_images"] == 2
+
+    # `render` on the same checkpoint and split: the renders of `eval
+    # --save-renders`, plus depth colormaps, and error maps over the tree
+    _cli("render", "--checkpoint", str(ckpts[-1]), "--dataparser",
+         "mushroom", "--data", str(tmp_path), "--split", "val",
+         "--pair-capacity", "4096", "--parser.eval-mode", "all",
+         "--device", "cpu", "--output-dir", str(tmp_path / "renders"))
+    rendered = sorted((tmp_path / "renders" / "pred" / "rgb").glob("*.png"))
+    assert len(rendered) == 3
+    for sub, pattern in (("pred/rgb", "*.png"), ("pred/normal", "*.png"),
+                         ("gt/rgb", "*.png"), ("pred/depth", "*.npy")):
+        got = sorted((tmp_path / "renders" / sub).glob(pattern))
+        want = sorted((tmp_path / "evald" / sub).glob(pattern))
+        assert [p.name for p in got] == [p.name for p in want], sub
+        for a, b in zip(got, want):
+            if a.suffix == ".npy":
+                np.testing.assert_array_equal(np.load(a), np.load(b))
+            else:
+                np.testing.assert_array_equal(tio.read_image(a),
+                                              tio.read_image(b))
+    maps = sorted((tmp_path / "renders" / "pred" / "depth_colormaps")
+                  .glob("*.png"))
+    assert len(maps) == 3 and tio.read_image(maps[0]).shape == (H, W, 3)
+    from dnsplatter_torch.scripts import vis_errors
+
+    assert vis_errors.main(["--renders", str(tmp_path / "renders")]) == 9
 
     _cli("export", "dn", "--checkpoint", str(ckpts[-1]), "--dataparser",
          "mushroom", "--data", str(tmp_path), "--parser.num-init-points",
@@ -336,8 +367,6 @@ def test_cli_chain_on_the_cpu(tmp_path):
 
 
 def test_unported_commands_name_their_items(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue A item 12"):
-        tcli.cmd_render([])
     with pytest.raises(NotImplementedError, match="queue A item 15"):
         tcli.cmd_train(["gnerfacto", "mushroom", "--data", str(tmp_path),
                         "--device", "cpu"])

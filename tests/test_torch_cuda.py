@@ -904,3 +904,14 @@ def test_native_marching_built_into_the_port(dev):
     np.testing.assert_allclose(np.sort(np.linalg.norm(got[0] - c, axis=1)),
                                np.sort(np.linalg.norm(want[0] - c, axis=1)),
                                atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["dpt_hybrid_omnidata", "dsine_b5",
+                                  "zoedepth_nyu"])
+def test_prior_network_card_matches_cpu(dev, name):
+    """Each prior network at its narrow test width, the same weights on the
+    card and on the CPU: within chip_smoke.PRIOR_CARD_TOL (1e-4) of the
+    output's largest magnitude, float32 with TF32 off on both."""
+    rep = chip_smoke.card_vs_cpu(dev, (name,))[name]
+    assert rep["card_vs_cpu_rel"] <= chip_smoke.PRIOR_CARD_TOL

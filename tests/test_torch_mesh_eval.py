@@ -35,7 +35,18 @@ from dnsplatter_tpu.eval import mesh_render as jR
 from dnsplatter_tpu.ops.camera import Camera as JCamera
 from dnsplatter_tpu.ops.camera import look_at
 
+from test_torch_parsers import register_builtin_parsers  # noqa: E402
+
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _builtin_parsers():
+    """The built-in parsers registered whatever earlier tests in the
+    process left (test_torch_parsers.register_builtin_parsers)."""
+    with pytest.MonkeyPatch.context() as mp:
+        register_builtin_parsers(mp)
+        yield
 RTOL = 1e-5
 MASK_FLIP_FRAC = 1e-3
 W, H = 64, 48

@@ -36,7 +36,18 @@ from dnsplatter_tpu.eval.evaluator import evaluate as j_evaluate
 from dnsplatter_tpu.models import dn_model as jdn
 from dnsplatter_tpu.train import trainer as jtr
 
+from test_torch_parsers import register_builtin_parsers  # noqa: E402
+
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _builtin_parsers():
+    """The built-in parsers registered whatever earlier tests in the
+    process left (test_torch_parsers.register_builtin_parsers)."""
+    with pytest.MonkeyPatch.context() as mp:
+        register_builtin_parsers(mp)
+        yield
 W, H = 64, 48
 FOCAL = 45.0
 N_SEEDS = 1500

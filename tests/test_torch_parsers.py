@@ -54,6 +54,32 @@ torch.set_num_threads(1)
 W, H = 64, 48
 FX, FY, CX, CY = 50.0, 52.0, W / 2 + 0.3, H / 2 - 0.2
 POINT_TOL = 1e-5
+BUILTIN_PARSERS = {"normal-nerfstudio": "normal_nerfstudio",
+                   "mushroom": "mushroom", "scannetpp": "scannetpp",
+                   "replica": "replica", "nrgbd": "nrgbd",
+                   "coolermap": "coolermap", "gsdf": "gsdf"}
+
+
+def register_builtin_parsers(mp: pytest.MonkeyPatch) -> None:
+    """Both packages' seven built-in parsers under their names, until `mp`
+    is undone, whatever earlier tests in the process left in the
+    registries: tests/test_plugins.py restores a snapshot of the JAX
+    registry, and a parser module imported during its test does not
+    register again afterwards."""
+    import importlib
+
+    for pkg in ("dnsplatter_tpu", "dnsplatter_torch"):
+        registry = importlib.import_module(f"{pkg}.data.parsers").PARSERS
+        for name, module in BUILTIN_PARSERS.items():
+            mp.setitem(registry, name, importlib.import_module(
+                f"{pkg}.data.parsers.{module}").parse)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _builtin_parsers():
+    with pytest.MonkeyPatch.context() as mp:
+        register_builtin_parsers(mp)
+        yield
 NORMAL_TOL = 1e-4
 MASK_FLIP_FRAC = 1e-3
 
