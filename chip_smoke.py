@@ -146,10 +146,36 @@ Phases (any failure raises and the script exits non-zero):
    `compare_normals` between the priors and those normals. One JSON line
    per network.
 
+11. The baseline methods, the live viewer and batch runs, on the same
+   capture. `cli train gnerfacto|gdepthfacto|gneusfacto mushroom` at the
+   methods' own widths (nerfacto: 1024 rays, 64 + 64 samples, 12 levels
+   of 2^17 x 2, hidden 64; NeuS: 512 rays, 96 samples, 10 levels), 30
+   steps each with the seed cloud off (the baselines read none): ms a step
+   (host clock ended by the loss's read-back; median and min), steps/s,
+   peak memory, the losses (all finite; the nerfacto variants' last five
+   below their first five), one step under `utils/profiling.trace` (its
+   kernels, launch calls and device ms; a trace file written), the
+   checkpoint reloaded by `load_baseline` equal to the trained module and
+   the history read back, no rasterizer kernel launched. Each method's
+   step on the card against the CPU from the same weights, pixel draws and
+   sample distances: loss within 1e-5 relative, each parameter's gradient
+   within 1e-3 in relative L2. A Trainer with `TrainConfig(viewer=True,
+   viewer_port=0)` on the capture at the parser's defaults takes 5 steps
+   while a client thread fetches /render.png at three poses and three
+   scales (nine distinct renders) and /stats.json; then /, /rgb.png and
+   /depth.png: HTTP 200 (a 503 fails the phase), PNGs of the expected
+   sizes, the counters set to 0 just before the steps and read after:
+   forward_tiles and the expansion once a step, once for the eval image
+   and once an orbit render, the other step kernels once a step; the
+   orbit frames' pair counts against the render's capacity and the JAX
+   package's 2^20. `dispatch_jobs` over two copies of the capture on one
+   device slot (`dn-splatter`, 2 steps, 20,000 seeds): every job 0, both
+   on slot 0, one after the other.
+
 Prints one JSON line per kernel and scene, one per scene (the MuSHRoom
-path's, the CLI's and the priors' among them), the script's seconds, a
-`kernels` line whose launch counts sum the main paths of phases 2-5 and
-8-10, the card's name and power limit, and last
+path's, the CLI's, the priors' and the baselines' among them), the
+script's seconds, a `kernels` line whose launch counts sum the main paths
+of phases 2-5 and 8-11, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Needs CUDA: without it, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
@@ -2447,6 +2473,393 @@ def run_priors(dev, gpu, tmp: Path, cli_summary: dict):
         collections.Counter(render_launches)
 
 
+# Phase 11: the baseline methods through `cli train`, the live viewer's orbit
+# renders while a Trainer steps, and batch runs, on phase 8's capture.
+BASELINE_METHODS = ("gnerfacto", "gdepthfacto", "gneusfacto")
+BASELINE_STEPS = 30
+BASELINE_TRACED_STEP = 10  # runs inside profiling.trace, not timed
+BASELINE_LOSS_RTOL = 1e-5  # card against CPU, one step's loss
+BASELINE_GRAD_L2 = 1e-3  # each leaf's |g_card - g_cpu|_2 / |g_cpu|_2
+BASELINE_TS_BINS = 1e-2  # card against CPU, sample distances in coarse bins
+VIEWER_STEPS = 5
+ORBIT_POSES = ((0.0, 20.0, 3.0), (75.0, 10.0, 2.5), (160.0, -10.0, 3.5))
+ORBIT_SCALES = (0.5, 1.0, 1.5)
+BATCH_SEEDS = 20_000
+
+
+def baseline_card_vs_cpu(method, dev, frame, cfg=None, seed=0) -> dict:
+    """One step's loss and gradients of a baseline method, at `cfg` (default:
+    the method's own widths), on the card and on the CPU from the same
+    weights, pixel draws and sample distances. Each device places the
+    samples from the same draws (nerfacto: the coarse field pass, the pdf's
+    search and the sort) and the two sets are held against each other in
+    bins of the coarse grid; both losses then take the CPU's distances, for
+    the devices round the pdf's sums differently and a sample a few ulps
+    away can cross a hash cell. `frame`: (camera, image, depth, normal) on
+    the CPU."""
+    import torch
+
+    from dnsplatter_torch.baselines import nerfacto, neusfacto, runner
+    from dnsplatter_torch.ops.camera import Camera
+
+    cpu = torch.device("cpu")
+    cfg = cfg or runner.method_config(method)
+    neus = method == "gneusfacto"
+    mod = neusfacto if neus else nerfacto
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(seed)
+    ref = mod.init_params(gen, cfg, device=cpu)
+    leaves = [x.detach().numpy() for x in runner.leaves_like_jax(ref)]
+    cam, image, depth, normal = frame
+    px = mod.pixel_draws(mod.N_RAYS, cam.width, cam.height, gen)
+    if neus:
+        draws = {"jitter": torch.rand((mod.N_RAYS, cfg.n_samples),
+                                      generator=gen)}
+    else:
+        draws = nerfacto.ray_draws(cfg, mod.N_RAYS, gen)
+    out, ts_on = {}, {}
+    for device in (cpu, dev):
+        params = runner.params_from_jax(leaves, cfg, device=device)
+        c = Camera.create(float(cam.fx), float(cam.fy), float(cam.cx),
+                          float(cam.cy), cam.c2w.cpu().numpy(), cam.width,
+                          cam.height, device=device)
+        on = {k: v.to(device) for k, v in draws.items()}
+        if neus:
+            ts_on[device.type] = neusfacto.sample_distances(cfg, on["jitter"])
+        else:
+            o, d = nerfacto.camera_rays(c, px.to(device))
+            ts_on[device.type] = nerfacto.sample_distances(params, cfg, o, d,
+                                                           on)
+        ts = ts_on["cpu"]
+        args = [c, image.to(device), depth.to(device)]
+        args += [normal.to(device)] if neus else []
+        loss = mod.train_loss(params, cfg, *args, {"px": px.to(device),
+                                                   "ts": ts.to(device)})
+        grads = torch.autograd.grad(loss, runner.leaves_like_jax(params))
+        out[device.type] = (float(loss.detach()), [g.cpu() for g in grads])
+    (l_cpu, g_cpu), (l_card, g_card) = out["cpu"], out[dev.type]
+    l2 = [float((a - b).norm() / b.norm().clamp_min(1e-30))
+          for a, b in zip(g_card, g_cpu)]
+    worst = [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+             for a, b in zip(g_card, g_cpu)]
+    coarse_bin = (cfg.far - cfg.near) / (cfg.n_samples if neus
+                                         else cfg.n_coarse)
+    return {"loss_cpu": l_cpu, "loss_card": l_card,
+            "loss_rel_err": abs(l_card - l_cpu) / abs(l_cpu),
+            "grad_rel_l2": max(l2), "grad_max_abs_rel": max(worst),
+            "ts_max_err_bins": float((ts_on[dev.type].cpu() - ts_on["cpu"])
+                                     .abs().max()) / coarse_bin,
+            "rays": mod.N_RAYS, "samples": int(ts.shape[1])}
+
+
+def trace_counts(prof) -> dict:
+    """Kernels on the card, launch calls on the host, and the kernels'
+    summed device time, of a `profiling.trace`d block."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    launch_calls = sum(e.name in ("cudaLaunchKernel", "cuLaunchKernel",
+                                  "cudaLaunchKernelExC", "cuLaunchKernelEx")
+                       for e in events)
+    return {"device_kernels": len(kernels), "launch_calls": launch_calls,
+            "device_ms": sum(e.time_range.elapsed_us()
+                             for e in kernels) / 1e3}
+
+
+def run_baselines(dev, gpu, tmp: Path):
+    """Phase 11: `cli train` of the three baseline methods at their own
+    widths on phase 8's capture (30 steps each, one of them traced), each
+    method's step card against CPU; a Trainer with the live viewer serving
+    orbit renders while it steps; `dispatch_jobs` over two copies of the
+    capture on one device slot. Returns (summary, [], launches)."""
+    import contextlib
+    import io as _io
+    import os
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from dnsplatter_torch import cli
+    from dnsplatter_torch.baselines import nerfacto, neusfacto, runner
+    from dnsplatter_torch.data.parsers.mushroom import (MushroomParserConfig,
+                                                        parse)
+    from dnsplatter_torch.eval import batch_run
+    from dnsplatter_torch.models.dn_model import ModelConfig
+    from dnsplatter_torch.ops import rasterize_cuda as rc
+    from dnsplatter_torch.train.trainer import TrainConfig, Trainer
+    from dnsplatter_torch.utils import profiling
+
+    seconds, methods = {}, {}
+
+    def sync_now() -> float:
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    t_phase = sync_now()
+    # -- the baselines through the CLI (they read no seed cloud) --
+    for method in BASELINE_METHODS:
+        mod = neusfacto if method == "gneusfacto" else nerfacto
+        rec = {"ms": [], "losses": []}
+        make = mod.make_train_step
+
+        def make_timed(cfg, lr, make=make, rec=rec, method=method):
+            step, opt = make(cfg, lr=lr)
+
+            def timed(*args, **kw):
+                if len(rec["losses"]) == BASELINE_TRACED_STEP:
+                    with profiling.trace(tmp / f"trace_{method}") as prof:
+                        loss = step(*args, **kw)
+                        value = float(loss)
+                    rec["trace"] = trace_counts(prof)
+                else:
+                    t = sync_now()
+                    loss = step(*args, **kw)
+                    value = float(loss)  # waits for the step
+                    rec["ms"].append((time.perf_counter() - t) * 1e3)
+                rec["losses"].append(value)
+                return loss
+
+            return timed, opt
+
+        run = tmp / f"baseline_{method}"
+        rc.LAUNCHES.clear()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = sync_now()
+        with mock.patch.object(mod, "make_train_step", make_timed), \
+                contextlib.redirect_stdout(sys.stderr):
+            params, history = cli.cmd_train([
+                method, "mushroom", "--data", str(tmp), "--output-dir",
+                str(run), "--max-iterations", str(BASELINE_STEPS),
+                "--parser.load-3D-points", "false"])
+        seconds[method] = sync_now() - t0
+        peak = torch.cuda.max_memory_allocated()
+        if any(rc.LAUNCHES.values()):
+            raise AssertionError(f"[{method}] launched rasterizer kernels "
+                                 f"{dict(rc.LAUNCHES)}")
+        losses, ms = rec["losses"], rec["ms"]
+        if len(losses) != BASELINE_STEPS or not np.isfinite(losses).all():
+            raise AssertionError(f"[{method}] losses {losses}")
+        if (method != "gneusfacto"
+                and not np.mean(losses[-5:]) < np.mean(losses[:5])):
+            raise AssertionError(f"[{method}] the loss did not fall: "
+                                 f"{losses}")
+        if not rec["trace"]["device_kernels"] > 0:
+            raise AssertionError(f"[{method}] the trace shows no kernel: "
+                                 f"{rec['trace']}")
+        if not (tmp / f"trace_{method}" / "trace.json").exists():
+            raise AssertionError(f"[{method}] no trace written")
+        back = runner.load_baseline(run / f"baseline_{method}.npz", method,
+                                    device=dev)
+        for a, b in zip(runner.leaves_like_jax(back),
+                        runner.leaves_like_jax(params)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"[{method}] the checkpoint does not "
+                                     "reload")
+        hist = json.loads((run / f"baseline_{method}_history.json")
+                          .read_text())
+        if hist != history or hist[-1]["step"] != BASELINE_STEPS:
+            raise AssertionError(f"[{method}] history {hist}")
+        methods[method] = {
+            "ms_per_step_median": statistics.median(ms),
+            "ms_per_step_min": min(ms), "steps_per_s":
+            1e3 / statistics.median(ms), "peak_gb": peak / 1e9,
+            "step_trace": rec["trace"], "losses": losses,
+            "params": int(sum(p.numel() for p in params.parameters()))}
+        log(f"[baselines] {method}: {methods[method]}")
+        del params, back
+        torch.cuda.empty_cache()
+
+    # -- each method's step on the card against the CPU --
+    t0 = sync_now()
+    cpu_ds = parse(MushroomParserConfig(data=tmp, load_3D_points=False),
+                   "train", device="cpu")
+    cam, batch = cpu_ds.get(0)
+    frame = (cam,) + tuple(torch.as_tensor(np.asarray(
+        batch[k].cpu() if torch.is_tensor(batch[k]) else batch[k]),
+        dtype=torch.float32) for k in ("image", "sensor_depth", "normal"))
+    for method in BASELINE_METHODS:
+        cmp = baseline_card_vs_cpu(method, dev, frame)
+        if not (cmp["loss_rel_err"] <= BASELINE_LOSS_RTOL
+                and cmp["grad_rel_l2"] <= BASELINE_GRAD_L2
+                and cmp["ts_max_err_bins"] <= BASELINE_TS_BINS):
+            raise AssertionError(f"[{method}] card vs CPU {cmp}")
+        methods[method]["card_vs_cpu"] = cmp
+    seconds["card_vs_cpu"] = sync_now() - t0
+
+    # -- the viewer: orbit renders while a Trainer steps --
+    t0 = sync_now()
+    with contextlib.redirect_stdout(sys.stderr):
+        ds = parse(MushroomParserConfig(data=tmp), "train", device=dev)
+        trainer = Trainer(ds, ds.seed(), model_cfg=ModelConfig(
+            use_depth_loss=True, depth_lambda=0.2, use_normal_loss=True),
+            train_cfg=TrainConfig(viewer=True, viewer_port=0,
+                                  steps_per_eval_image=VIEWER_STEPS))
+    seconds["viewer_setup"] = sync_now() - t0
+    render_ms = []
+    orbit = trainer._orbit_render
+
+    def timed_orbit(*args, **kw):
+        t = time.perf_counter()
+        out = orbit(*args, **kw)  # ends in copies to the host
+        render_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    trainer.viewer.set_render_fn(timed_orbit)
+    base = f"http://127.0.0.1:{trainer.viewer.port}"
+    poses = [(az, el, r, s) for az, el, r in ORBIT_POSES
+             for s in ORBIT_SCALES]
+    fetched, fetched_stats, errors = [], [], []
+
+    def get(path):
+        with urllib.request.urlopen(base + path, timeout=120) as resp:
+            return resp.status, resp.read()
+
+    def client():
+        try:
+            for az, el, r, s in poses:
+                t = time.perf_counter()
+                status, body = get(f"/render.png?az={az}&el={el}&r={r}"
+                                   f"&scale={s}&ch=rgb")
+                fetched.append(((az, el, r, s), status, body, t,
+                                time.perf_counter()))
+                if len(fetched) == len(poses) // 2:
+                    fetched_stats.append(get("/stats.json"))
+        except Exception as e:  # the phase fails on it below
+            errors.append(e)
+
+    rc.LAUNCHES.clear()
+    th = threading.Thread(target=client)
+    t_train = time.perf_counter()
+    th.start()
+    with contextlib.redirect_stdout(sys.stderr):
+        trainer.train(VIEWER_STEPS, log_every=1)
+    torch.cuda.synchronize()
+    t_trained = time.perf_counter()
+    th.join(timeout=300)
+    if th.is_alive() or errors:
+        raise AssertionError(f"[viewer] orbit fetches failed: {errors}")
+    viewer_launches = {k: rc.LAUNCHES[k] for k in STEP_KERNELS + REDUCERS}
+    want = expected_step_launches(VIEWER_STEPS, trainer.params.capacity,
+                                  "reduce_segments_bykey")
+    renders = VIEWER_STEPS + 1 + len(poses)  # steps, one eval, the orbits
+    want["forward_tiles"] = renders
+    want[expand_entry(rc, trainer.params.capacity).__name__] = renders
+    if viewer_launches != want:
+        raise AssertionError(f"[viewer] launches {viewer_launches}, "
+                             f"expected {want}")
+    base_cam = ds.get(0)[0]
+    ocams = {pose: trainer.orbit_camera(trainer.params, trainer.alive, *pose)
+             for pose in poses}
+    sizes = {}
+    for pose, status, body, _, _ in fetched:
+        s = pose[3]
+        want_size = (ocams[pose].width, ocams[pose].height)
+        img = Image.open(_io.BytesIO(body))
+        img.load()
+        if status != 200 or img.size != want_size:
+            raise AssertionError(f"[viewer] {status} {img.size} for scale "
+                                 f"{s}, expected {want_size}")
+        sizes[s] = img.size
+    if len({body for pose, _, body, _, _ in fetched
+            if pose[3] == 1.0}) != len(ORBIT_POSES):
+        raise AssertionError("[viewer] two poses gave the same render")
+    overlapped = sum(t1 > t_train and t0 < t_trained
+                     for *_, t0, t1 in fetched)
+    stats = json.loads(get("/stats.json")[1])
+    if stats.get("step") != VIEWER_STEPS or not math.isfinite(stats["loss"]):
+        raise AssertionError(f"[viewer] stats {stats}")
+    status, page = get("/")
+    if status != 200 or b"viewer" not in page:
+        raise AssertionError("[viewer] no page")
+    for ch in ("rgb", "depth"):
+        status, body = get(f"/{ch}.png")
+        img = Image.open(_io.BytesIO(body))
+        img.load()
+        if status != 200 or img.size != (base_cam.width, base_cam.height):
+            raise AssertionError(f"[viewer] /{ch}.png {status} {img.size}")
+    # the orbit frames' pair lists at the render's capacity, against the
+    # JAX package's 2^20 cap
+    cap = trainer.train_cfg.pair_capacity
+    pairs = []
+    for pose in poses:
+        pairs.append(int(bin_frame(trainer.params, trainer.alive, ocams[pose],
+                                   trainer._raster_cfg(ocams[pose])
+                                   ).total_pairs))
+    trainer.viewer.close()
+    viewer = {
+        "steps": VIEWER_STEPS, "orbit_renders": len(poses),
+        "orbit_sizes": {str(k): v for k, v in sizes.items()},
+        "orbit_render_ms_median": statistics.median(render_ms),
+        "orbit_render_ms": render_ms,
+        "orbit_fetches_during_training": overlapped,
+        "train_s": t_trained - t_train, "pair_capacity": cap,
+        "orbit_pairs_max": max(pairs), "orbit_pairs": pairs,
+        "orbit_overflow": max(pairs) > cap,
+        "orbit_over_jax_cap": max(pairs) > (1 << 20),
+        "stats_mid_training": json.loads(fetched_stats[0][1])
+        if fetched_stats else None}
+    log(f"[viewer] {viewer}")
+    del trainer, ds
+    torch.cuda.empty_cache()
+    seconds["viewer"] = sync_now() - t0
+
+    # -- batch runs: two copies of the capture, one device slot --
+    data_root, out_root = tmp / "batch_data", tmp / "batch_runs"
+    scenes = ["room_a", "room_b"]
+    for scene in scenes:
+        (data_root / scene).mkdir(parents=True)
+        (data_root / scene / "iphone").symlink_to(tmp / "iphone")
+    cfg = batch_run.ExperimentConfig(
+        max_iterations=2, extra_flags=["--parser.num-init-points",
+                                       str(BATCH_SEEDS)])
+    spans = []
+    real_run = subprocess.run
+
+    def recording_run(cmd, **kw):
+        t = time.perf_counter()
+        proc = real_run(cmd, **kw)
+        spans.append((kw["env"]["DNSPLATTER_DEVICE_SLOT"], t,
+                      time.perf_counter()))
+        return proc
+
+    t0 = time.perf_counter()
+    with mock.patch.object(batch_run.subprocess, "run", recording_run), \
+            mock.patch.dict(os.environ, {"PYTHONPATH": str(REPO)}), \
+            contextlib.redirect_stdout(sys.stderr):
+        results = batch_run.dispatch_jobs(cfg, data_root, out_root, scenes,
+                                          device_slots=1)
+    seconds["batch_run"] = time.perf_counter() - t0
+    written = json.loads((out_root / "batch_results.json").read_text())
+    if written != dict.fromkeys(scenes, 0) or results != written:
+        for scene in scenes:
+            log((out_root / scene / "train.log").read_text()[-3000:])
+        raise AssertionError(f"[batch_run] results {written}")
+    if ([s for s, _, _ in spans] != ["0", "0"]
+            or not spans[1][1] >= spans[0][2]):
+        raise AssertionError(f"[batch_run] jobs {spans}")
+    for scene in scenes:
+        if not (out_root / scene / "ckpt_000002.npz").exists():
+            raise AssertionError(f"[batch_run] no checkpoint for {scene}")
+    batch = {"jobs": len(scenes), "job_s": [b - a for _, a, b in spans],
+             "slots": [s for s, _, _ in spans], "results": written}
+    seconds["phase"] = sync_now() - t_phase
+
+    summary = {"scene": "baselines_mushroom", "width": WIDTH,
+               "height": HEIGHT, "baseline_steps": BASELINE_STEPS,
+               "methods": methods, "viewer": viewer, "batch_run": batch,
+               "seconds": seconds, "launches_viewer": viewer_launches,
+               "gpu": gpu}
+    for method, rep in methods.items():
+        print(json.dumps({"baseline": method, "gpu": gpu,
+                          **{k: v for k, v in rep.items()
+                             if k != "losses"}}), flush=True)
+    return summary, [], collections.Counter(viewer_launches)
+
+
 def oracle_grad_check(dev):
     """Gradients of the kernel path (forward_tiles, backward_tiles, the
     key sort, the reduction) against torch.autograd through the dense
@@ -2620,6 +3033,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         # -- monocular priors, training on them, cli render --
         keep(*run_priors(dev, gpu, Path(tmp), cli_run[0]))
+        torch.cuda.empty_cache()
+        # -- the baselines, the viewer, batch runs --
+        keep(*run_baselines(dev, gpu, Path(tmp)))
 
     src = "dnsplatter_torch/csrc/"
     pallas = "dnsplatter_tpu/ops/rasterize_pallas.py"

@@ -28,6 +28,7 @@ import json
 import sys
 from pathlib import Path
 
+from dnsplatter_torch.baselines.runner import BASELINE_METHODS
 from dnsplatter_torch.configs import (
     METHOD_PRESETS,
     add_dataclass_args,
@@ -38,9 +39,6 @@ from dnsplatter_torch.models.dn_model import ModelConfig
 from dnsplatter_torch.train.optim import OptimConfig
 from dnsplatter_torch.train.trainer import TrainConfig, Trainer
 
-# The reference's baseline methods; the JAX package trains them through its
-# ray-batch runner, which is not ported yet.
-BASELINE_METHODS = ("gdepthfacto", "gnerfacto", "gneusfacto")
 EXPORT_MODES = ("tsdf", "o3dtsdf", "dn", "gaussians", "sugar-coarse",
                 "marching", "isofusion")
 
@@ -117,9 +115,18 @@ def cmd_train(argv):
     args = p.parse_args(argv)
 
     if args.method in BASELINE_METHODS:
-        raise NotImplementedError(
-            f"the baseline method {args.method!r} is not ported yet: "
-            "ROADMAP.md queue A item 15")
+        # The reference's gnerfacto / gdepthfacto / gneusfacto method
+        # specifications train through the ray-batch runner instead of the
+        # splatter Trainer.
+        from dnsplatter_torch.baselines.runner import train_baseline
+
+        data = _load_dataset(args, parser_cls, "train")
+        train_cfg = build_dataclass(TrainConfig, args, "train", TrainConfig())
+        steps = (args.max_iterations if args.max_iterations is not None
+                 else train_cfg.max_iterations)
+        return train_baseline(args.method, data, num_steps=steps,
+                              out_dir=args.output_dir, seed=train_cfg.seed,
+                              device=args.device)
     model_cfg = build_dataclass(ModelConfig, args, "model",
                                 model_config_for_method(args.method))
     train_cfg = build_dataclass(TrainConfig, args, "train", TrainConfig())

@@ -38,6 +38,12 @@ def read_image(path: Path) -> np.ndarray:
 
 def write_image(path: Path, img: np.ndarray) -> None:
     """(H, W), (H, W, 1) or (H, W, 3) float image in [0, 1] -> 8-bit PNG."""
+    Path(path).write_bytes(encode_png(img))
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """The 8-bit PNG file of an (H, W), (H, W, 1) or (H, W, 3) float image
+    in [0, 1]."""
     arr = np.clip(np.asarray(img), 0.0, 1.0)
     if arr.ndim == 3 and arr.shape[-1] == 1:
         arr = arr[..., 0]
@@ -51,11 +57,11 @@ def write_image(path: Path, img: np.ndarray) -> None:
     h, w = px.shape[:2]
     rows = px.reshape(h, -1)
     raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
-    png = (b"\x89PNG\r\n\x1a\n"
-           + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0, 0))
-           + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
-           + _chunk(b"IEND", b""))
-    Path(path).write_bytes(png)
+    return (b"\x89PNG\r\n\x1a\n"
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0,
+                                          0))
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + _chunk(b"IEND", b""))
 
 
 def resize_image(img: np.ndarray, height: int, width: int,

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import threading
 from typing import Dict, Tuple
 
 import torch
@@ -29,6 +30,14 @@ MAX_FEATS = 8
 GW = 16  # rows of the unpacked (float32) gradient slab
 
 LAUNCHES: Dict[str, int] = collections.Counter()
+# The viewer renders on its HTTP thread while training launches on the
+# main one; `+=` on a dict entry is a read-modify-write.
+_LAUNCH_LOCK = threading.Lock()
+
+
+def _count(name: str) -> None:
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -161,7 +170,7 @@ def expand_segments(vals: torch.Tensor, starts: torch.Tensor, out_len: int,
     if not _route(vals, "expand_segments"):
         return expand_segments_plain(vals, starts, out_len, out_dtype)
     out = _expand_launch(vals, starts, out_len, out_dtype)
-    LAUNCHES["expand_segments"] += 1
+    _count("expand_segments")
     return out
 
 
@@ -174,7 +183,7 @@ def expand_segments_stream(vals: torch.Tensor, starts: torch.Tensor,
     if not _route(vals, "expand_segments_stream"):
         return expand_segments_plain(vals, starts, out_len, out_dtype)
     out = _expand_launch(vals, starts, out_len, out_dtype)
-    LAUNCHES["expand_segments_stream"] += 1
+    _count("expand_segments_stream")
     return out
 
 
@@ -298,7 +307,7 @@ def forward_tiles(
         tile_counts.data_ptr(), n_tiles, n_feats, tile, tiles_x,
         out.data_ptr(), t_final.data_ptr(), last.data_ptr(), _stream()),
         "forward_tiles")
-    LAUNCHES["forward_tiles"] += 1
+    _count("forward_tiles")
     return out, t_final, last
 
 
@@ -531,7 +540,7 @@ def backward_tiles(
         g_out.data_ptr(), g_alpha.data_ptr(), t_final.data_ptr(),
         last.data_ptr(), order.data_ptr(), slab.data_ptr(), slab.stride(0),
         1 if pack_grads else 0, _stream()), "backward_tiles")
-    LAUNCHES["backward_tiles"] += 1
+    _count("backward_tiles")
     return slab
 
 
@@ -616,7 +625,7 @@ def reduce_segments_bykey(slab: torch.Tensor, ru: int, n: int
     _check_rc(_entry("reduce_segments_bykey")(
         slab.data_ptr(), slab.stride(0), length, ru, n, out.data_ptr(),
         out.stride(0), ids, _stream()), "reduce_segments_bykey")
-    LAUNCHES["reduce_segments_bykey"] += 1
+    _count("reduce_segments_bykey")
     return out
 
 
@@ -695,7 +704,7 @@ def reduce_segments_packed(packed: torch.Tensor, starts: torch.Tensor,
         packed.data_ptr(), packed.stride(0), length, starts.data_ptr(), pr,
         n, out.data_ptr(), out.stride(0), _stream()),
         "reduce_segments_packed")
-    LAUNCHES["reduce_segments_packed"] += 1
+    _count("reduce_segments_packed")
     return out
 
 
@@ -743,7 +752,7 @@ def reduce_segments_packed_multi(packed: torch.Tensor,
         packed.data_ptr(), packed.stride(0), packed.stride(1), cp,
         piece_starts.data_ptr(), kp, pr, n, out.data_ptr(), out.stride(0),
         _stream()), "reduce_segments_packed_multi")
-    LAUNCHES["reduce_segments_packed_multi"] += 1
+    _count("reduce_segments_packed_multi")
     return out
 
 
@@ -783,7 +792,7 @@ def reduce_segments(grads: torch.Tensor, starts: torch.Tensor, n: int
     _check_rc(_entry("reduce_segments")(
         grads.data_ptr(), grads.stride(0), length, starts.data_ptr(), gw, n,
         out.data_ptr(), out.stride(0), _stream()), "reduce_segments")
-    LAUNCHES["reduce_segments"] += 1
+    _count("reduce_segments")
     return out
 
 
@@ -835,5 +844,5 @@ def cumsum_lanes_i32(x: torch.Tensor) -> torch.Tensor:
     _check_rc(_entry("cumsum_lanes_i32")(
         x.data_ptr(), out.data_ptr(), scratch.data_ptr(), words, r, c,
         _stream()), "cumsum_lanes_i32")
-    LAUNCHES["cumsum_lanes_i32"] += 1
+    _count("cumsum_lanes_i32")
     return out

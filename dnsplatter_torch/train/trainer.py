@@ -20,16 +20,22 @@ as one device dispatch; here they are k calls of the same step function.
 
 With an `out_dir` the loop logs to `metrics.jsonl` and, with
 `TrainConfig.tensorboard`, to a tfevents file under `out_dir/tb`
-(`utils/writers.py`).
+(`utils/writers.py`). With `TrainConfig.viewer` it serves the live viewer
+(`utils/viewer.py`) on `viewer_port` (0: an ephemeral port): the log rows,
+the eval images, and orbit renders of the current model on the viewer's
+HTTP thread. Those read the state at a step boundary: the loop holds
+`state_lock` over each step and its refinement, and the render copies the
+parameters under it (refinement writes some in place).
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-`devices > 1`, `distributed` / `dp > 1` and the viewer.
+`devices > 1`, `distributed` / `dp > 1`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Optional, Tuple
@@ -54,7 +60,7 @@ from dnsplatter_torch.models.gaussians import (
     params_from_numpy,
     params_to_numpy,
 )
-from dnsplatter_torch.ops.camera import Camera
+from dnsplatter_torch.ops.camera import Camera, look_at
 from dnsplatter_torch.ops.projection import project_gaussians
 from dnsplatter_torch.ops.rasterize import RasterizeConfig
 from dnsplatter_torch.models.camera_opt import apply_adjustment
@@ -145,9 +151,6 @@ def _check_ported(model_cfg: ModelConfig, tc: TrainConfig) -> None:
         raise NotImplementedError(
             "multi-device training (devices > 1, distributed, dp > 1) is "
             "not ported yet: ROADMAP.md queue A item 14")
-    if tc.viewer:
-        raise NotImplementedError(
-            "the viewer is not ported yet: ROADMAP.md queue A item 15")
 
 
 def loss_and_grads(
@@ -310,6 +313,14 @@ class Trainer:
             self._writers.append(JsonlWriter(self.out_dir))
             if train_cfg.tensorboard:
                 self._writers.append(TensorboardWriter(self.out_dir / "tb"))
+        self.state_lock = threading.Lock()
+        self.viewer = None
+        if train_cfg.viewer:
+            from dnsplatter_torch.utils.viewer import Viewer
+
+            self.viewer = Viewer(port=train_cfg.viewer_port)
+            self.viewer.set_render_fn(self._orbit_render)
+            print(f"viewer: http://127.0.0.1:{self.viewer.port}/", flush=True)
 
     # -- configuration ----------------------------------------------------
 
@@ -348,8 +359,12 @@ class Trainer:
         cap = max(int(worst * tc.auto_capacity_margin), 1 << 16)
         return -(-cap // tc.chunk) * tc.chunk
 
-    def _raster_cfg(self, camera: Camera) -> RasterizeConfig:
+    def _raster_cfg(self, camera: Camera,
+                    pair_capacity: Optional[int] = None) -> RasterizeConfig:
+        """The rasterizer's config for `camera`, at `pair_capacity` (default:
+        the trainer's) rounded up to the chunk."""
         tc = self.train_cfg
+        cap = tc.pair_capacity if pair_capacity is None else pair_capacity
         kw = {}
         if tc.compact_frac >= 0.0:
             kw["compact_frac"] = tc.compact_frac
@@ -359,11 +374,57 @@ class Trainer:
             tile_size=tc.tile_size,
             chunk=tc.chunk,
             tile_block=tc.tile_block,
-            pair_capacity=-(-tc.pair_capacity // tc.chunk) * tc.chunk,
+            pair_capacity=-(-cap // tc.chunk) * tc.chunk,
             backend="cuda" if tc.backend == "auto" else tc.backend,
             sort_scheme=tc.sort_scheme,
             **kw,
         )
+
+    def orbit_camera(self, params: GaussianParams, alive: torch.Tensor,
+                     az_deg: float, el_deg: float, radius: float,
+                     scale: float = 1.0) -> Camera:
+        """The viewer's orbit camera: frame 0's intrinsics at a 320-pixel
+        width times `scale` (at most the frame's, at least 16 pixels),
+        looking at the centroid of `params`' alive Gaussians from `radius`
+        away at azimuth / elevation in degrees."""
+        base = getattr(self, "_orbit_base", None)
+        if base is None:
+            base = self._orbit_base = self.data.get(0)[0]
+        bw = max(base.width, 1)
+        f = max(min(min(1.0, 320.0 / bw) * float(scale), 1.0), 16.0 / bw)
+        small = base.rescaled(f)
+        center = (torch.sum(params.means * alive[:, None], 0)
+                  / torch.clamp(alive.sum(), min=1.0)).cpu().numpy()
+        el, az = np.deg2rad(el_deg), np.deg2rad(az_deg)
+        eye = center + np.float32(radius) * np.asarray(
+            [np.cos(el) * np.cos(az), np.sin(el), np.cos(el) * np.sin(az)],
+            np.float32)
+        return Camera.create(small.fx, small.fy, small.cx, small.cy,
+                             look_at(eye, center, device=self.device),
+                             small.width, small.height, device=self.device)
+
+    @torch.no_grad()
+    def _orbit_render(self, az_deg: float, el_deg: float, radius: float,
+                      scale: float = 1.0) -> Dict[str, np.ndarray]:
+        """Viewer callback: render the current model from a user-driven
+        orbit camera (`orbit_camera`) on the viewer's HTTP thread. The
+        state is copied at a step boundary, under `state_lock`. Unlike the
+        JAX package, which caps the render's pair list at 2^20, it renders
+        at the trainer's audited pair capacity: a million Gaussians seen
+        from an orbit can list more pairs than that, and an overflowing
+        list drops Gaussians."""
+        with self.state_lock:
+            params = GaussianParams(**{
+                f: getattr(self.params, f).clone() for f in FIELDS})
+            alive = self.alive.clone()
+            pair_capacity = self.train_cfg.pair_capacity
+        cam = self.orbit_camera(params, alive, az_deg, el_deg, radius, scale)
+        out, _ = get_outputs(
+            params, alive, cam, self.model_cfg,
+            self._raster_cfg(cam, pair_capacity),
+            sh_degree=self.model_cfg.sh_degree, training=False,
+            background=torch.zeros(3, device=self.device))
+        return {k: out[k].cpu().numpy() for k in ("rgb", "depth", "normal")}
 
     # -- refinement -------------------------------------------------------
 
@@ -443,6 +504,9 @@ class Trainer:
             self.params, self.alive, cam, self.model_cfg,
             self._raster_cfg(cam), sh_degree=sh, training=False,
             background=torch.zeros(3, device=self.device))
+        if self.viewer is not None:
+            self.viewer.update(images={"rgb": out["rgb"].cpu().numpy(),
+                                       "depth": out["depth"].cpu().numpy()})
         row = {f"rgb_{k}": v for k, v in M.rgb_metrics(
             out["rgb"], self._tensor(batch["image"])).items()}
         if "sensor_depth" in batch:
@@ -506,14 +570,15 @@ class Trainer:
             # again (at full resolution only, as in the JAX package)
             k_now = min(k_dispatch, target - self.step) if d == 1 else 1
             sh = sh_degree_to_use(self.step, self.model_cfg)
-            for _ in range(k_now):
-                cam_i = self.step % n
-                cam, batch = self.data.get(cam_i)
-                if d > 1:
-                    cam, batch = self._downscaled(cam_i, cam, batch, d)
-                    cam_i = (cam_i, d)
-                loss = self.train_one(cam, batch, cam_i, sh)
-            self._refinement(cam)
+            with self.state_lock:
+                for _ in range(k_now):
+                    cam_i = self.step % n
+                    cam, batch = self.data.get(cam_i)
+                    if d > 1:
+                        cam, batch = self._downscaled(cam_i, cam, batch, d)
+                        cam_i = (cam_i, d)
+                    loss = self.train_one(cam, batch, cam_i, sh)
+                self._refinement(cam)
             if self.step % log_every == 0 or self.step == target:
                 loss_v = float(loss)
                 n_alive = int(self.alive.sum())
@@ -523,6 +588,8 @@ class Trainer:
                 self._history.append(row)
                 for wtr in self._writers:
                     wtr.write_scalars(self.step, row)
+                if self.viewer is not None:
+                    self.viewer.update(stats=row)
                 print(f"step {self.step:6d}  loss {loss_v:.4f}  "
                       f"gaussians {n_alive}  {dt:.1f}s", flush=True)
             spe = self.train_cfg.steps_per_eval_image

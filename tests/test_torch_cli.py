@@ -366,10 +366,44 @@ def test_cli_chain_on_the_cpu(tmp_path):
     assert m["fscore"] > 0.5
 
 
+@pytest.fixture(scope="module")
+def capture(tmp_path_factory):
+    root = tmp_path_factory.mktemp("capture")
+    _write_capture(root)
+    return root
+
+
+@pytest.mark.parametrize("method", ["gnerfacto", "gdepthfacto", "gneusfacto"])
+def test_cli_trains_the_baselines_on_the_cpu(method, capture, tmp_path):
+    """`train <baseline> mushroom` at the methods' full widths, 2 steps: the
+    checkpoint's leaves have the shapes of the JAX package's, in its
+    flatten order, and the history is written."""
+    import jax
+
+    from dnsplatter_tpu.baselines import nerfacto as jnf
+    from dnsplatter_tpu.baselines import neusfacto as jns
+
+    out_dir = tmp_path / "run"
+    params, history = tcli.cmd_train([
+        method, "mushroom", "--data", str(capture), "--output-dir",
+        str(out_dir), "--max-iterations", "2", "--device", "cpu",
+        "--parser.num-init-points", "512"])
+    mod, cfg = ((jns, jns.NeuSConfig()) if method == "gneusfacto"
+                else (jnf, jnf.NerfactoConfig()))
+    init = jax.eval_shape(lambda k: mod.init_params(k, cfg),
+                          jax.random.PRNGKey(0))
+    with np.load(out_dir / f"baseline_{method}.npz") as z:
+        shapes = [z[f"leaf_{j}"].shape for j in range(len(z.files))]
+        assert all(np.isfinite(z[k]).all() for k in z.files)
+    assert shapes == [x.shape for x in jax.tree.leaves(init)]
+    rows = json.loads((out_dir / f"baseline_{method}_history.json")
+                      .read_text())
+    assert rows == history and rows[-1]["step"] == 2
+    assert np.isfinite(rows[-1]["loss"])
+    assert next(params.parameters()).device.type == "cpu"
+
+
 def test_unported_commands_name_their_items(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue A item 15"):
-        tcli.cmd_train(["gnerfacto", "mushroom", "--data", str(tmp_path),
-                        "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="queue A item 14"):
         tcli.cmd_train(["dn-splatter", "my-format", "--data", str(tmp_path),
                         "--device", "cpu", "--train.dp", "2"])

@@ -915,3 +915,31 @@ def test_prior_network_card_matches_cpu(dev, name):
     output's largest magnitude, float32 with TF32 off on both."""
     rep = chip_smoke.card_vs_cpu(dev, (name,))[name]
     assert rep["card_vs_cpu_rel"] <= chip_smoke.PRIOR_CARD_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["gnerfacto", "gdepthfacto", "gneusfacto"])
+def test_baseline_step_card_matches_cpu(dev, method):
+    """One step of each baseline at its own widths, card against CPU, from
+    the same weights, pixel draws and sample distances (chip_smoke.py's
+    check and tolerances: each device's sample distances within 1e-2 of a
+    coarse bin of the other's, loss within 1e-5 relative, each gradient
+    within 1e-3 in relative L2)."""
+    from dnsplatter_torch.ops.camera import Camera, look_at
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(0)
+    w, h = 160, 120
+    cam = Camera.create(140.0, 140.0, w / 2, h / 2,
+                        look_at((0.4, 0.3, 2.5), (0.0, 0.0, 0.0),
+                                device="cpu"), w, h, device="cpu")
+    frame = (cam, torch.as_tensor(rng.uniform(size=(h, w, 3)),
+                                  dtype=torch.float32),
+             torch.as_tensor(rng.uniform(0.5, 4.0, (h, w, 1)),
+                             dtype=torch.float32),
+             torch.as_tensor(rng.uniform(size=(h, w, 3)),
+                             dtype=torch.float32))
+    cmp = chip_smoke.baseline_card_vs_cpu(method, dev, frame)
+    assert cmp["loss_rel_err"] <= chip_smoke.BASELINE_LOSS_RTOL, cmp
+    assert cmp["grad_rel_l2"] <= chip_smoke.BASELINE_GRAD_L2, cmp
+    assert cmp["ts_max_err_bins"] <= chip_smoke.BASELINE_TS_BINS, cmp

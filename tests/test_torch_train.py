@@ -740,7 +740,7 @@ def test_unported_options_raise(scene):
 
     for model_kw, train_kw in (
             ({}, dict(devices=2)), ({}, dict(distributed=True)),
-            ({}, dict(dp=2)), ({}, dict(viewer=True))):
+            ({}, dict(dp=2))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make(model_kw, train_kw)
     # the TensorBoard writer (utils/writers.py) has landed: with an out_dir
@@ -751,6 +751,9 @@ def test_unported_options_raise(scene):
     assert make(dict(camera_optimizer_mode="SO3xR3"), {}).cam_adj.shape \
         == (4, 6)
     assert make({}, dict(steps_per_dispatch=2)).step == 0
+    tr = make({}, dict(viewer=True, viewer_port=0))  # the live viewer
+    assert tr.viewer.port > 0
+    tr.viewer.close()
     with pytest.raises(ValueError, match="steps_per_dispatch"):
         make({}, dict(steps_per_dispatch=3))
     with pytest.raises(ValueError, match="camera_optimizer_mode"):
