@@ -172,10 +172,35 @@ Phases (any failure raises and the script exits non-zero):
    device slot (`dn-splatter`, 2 steps, 20,000 seeds): every job 0, both
    on slot 0, one after the other.
 
+12. Multi-device training on torch.distributed (`dnsplatter_torch/
+   parallel/`), in two parts. 12a, right after phase 4's 1m training, in
+   the script's process: a process group of one under NCCL, and from the
+   1m Trainer's state one step each through `train_step`,
+   `make_dp_train_step` (dp 1), `make_sharded_train_step` and
+   `make_tile_train_step` (one shard), black background, each after one
+   warm-up step on a copy: loss, parameters and statistics against
+   `train_step` within 1e-6 of each array's largest magnitude (expected
+   bit-equal), the four step kernels once each, ms a step and the
+   collective log's calls and bytes; the group is destroyed after. 12b,
+   after phase 11: two ranks of this script (`--parallel-rank`) on the one
+   card over gloo (NCCL refuses two ranks on one card), on the train 100k
+   inputs: 3 steps each of the dp step (dp 2, frames 2s and 2s + 1), the
+   gspmd and the tile step (two shards), the last state held against
+   single-device references computed here first (3 `train_step`s; 3 Adam
+   steps on the two frames' averaged gradients): losses within 1e-5,
+   every array within 1e-3 of its largest magnitude on all but 0.01% of
+   its elements and within 2e-2 on all; then a 2-rank
+   `Trainer(TrainConfig(devices=2))` through the densify event of step
+   20, its alive count equal to a single-process Trainer's and only rank 0
+   writing its checkpoint. Each rank's launches join the totals. Last, `scaling_statement` of phase
+   4's median 1m step at that state's capacity and frame: the multi-GPU
+   projection from the accounted collective bytes and the H100 SXM5's
+   fabric figures.
+
 Prints one JSON line per kernel and scene, one per scene (the MuSHRoom
 path's, the CLI's, the priors' and the baselines' among them), the
 script's seconds, a `kernels` line whose launch counts sum the main paths
-of phases 2-5 and 8-11, the card's name and power limit, and last
+of phases 2-5 and 8-12, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Needs CUDA: without it, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
@@ -2860,6 +2885,499 @@ def run_baselines(dev, gpu, tmp: Path):
     return summary, [], collections.Counter(viewer_launches)
 
 
+# Phase 12: multi-device training on torch.distributed: the dp, gspmd and
+# tile steps under NCCL at world size 1 on the train 1m state, and over
+# gloo with two ranks sharing the card on the train 100k inputs.
+PAR_STEPS = 3  # steps of each strategy over gloo
+PAR_TRAINER_STEPS = 20  # the 2-rank Trainer: one densify event, at step 20
+# Against the single-device step. World 1 (NCCL) runs the very same
+# arithmetic: expected bit-equal, held at 1e-6 of each array's largest
+# magnitude. Two ranks (gloo) add the gathered rows' gradients in another
+# grouping (tile: the slabs' per-Gaussian sums): three Adam steps may turn
+# a rounding-level gradient into a step of the learning rate where a
+# gradient is near zero, so parameters are held at 1e-3 of each array's
+# largest magnitude on all but PAR_FLIP_FRAC of the elements, and every
+# element within PAR_MAX_ERR of it. Read on the H100 before these limits:
+# dp and gspmd bit-equal; tile 5.7e-3 at most, on 2.4e-5 of the elements.
+PAR_WORLD1_TOL = 1e-6
+PAR_LOSS_RTOL = 1e-5
+PAR_TOL = 1e-3
+PAR_FLIP_FRAC = 1e-4
+PAR_MAX_ERR = 2e-2
+PAR_TIMEOUT = 300
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def copy_state(params, alive, adam, stats):
+    """A deep copy of a training state (the steps update Adam in place)."""
+    import dataclasses
+
+    from dnsplatter_torch.models.gaussians import FIELDS, GaussianParams
+    from dnsplatter_torch.train.optim import AdamState
+    from dnsplatter_torch.train.strategy import RefineStats
+
+    tree = lambda t: GaussianParams(**{  # noqa: E731
+        f: getattr(t, f).clone() for f in FIELDS})
+    return (tree(params), alive.clone(),
+            AdamState(mu=tree(adam.mu), nu=tree(adam.nu),
+                      count=dict(adam.count), accum=tree(adam.accum)),
+            RefineStats(*(s.clone() for s in dataclasses.astuple(stats))))
+
+
+def scaled_errors(got: dict, want: dict) -> dict:
+    """Per array: the largest |got - want| over the largest |want|, the
+    share of elements beyond PAR_TOL of it, and whether all are equal."""
+    import torch
+
+    out = {}
+    for k, w in want.items():
+        g, w = got[k].float(), w.float()
+        d = (g - w).abs() / max(float(w.abs().max()), 1e-12)
+        out[k] = {"max": float(d.max()),
+                  "over": float((d > PAR_TOL).float().mean()),
+                  "bit_equal": bool(torch.equal(g, w))}
+    return out
+
+
+def state_arrays(params, stats) -> dict:
+    from dnsplatter_torch.models.gaussians import FIELDS
+
+    arrays = {f: getattr(params, f) for f in FIELDS}
+    arrays.update(grad_sum=stats.grad_sum, vis_count=stats.vis_count,
+                  max_2d=stats.max_2d)
+    return arrays
+
+
+def run_parallel_world1(trainer, dev, gpu):
+    """Phase 12a: from the train 1m Trainer's state, one step each through
+    `train_step`, `make_dp_train_step` (dp 1), `make_sharded_train_step`
+    and `make_tile_train_step` (one shard), under NCCL in a process group
+    of one, black background, each after one warm-up step on a copy (the
+    first NCCL call makes its communicator). Returns (summary, launches)."""
+    import functools
+
+    import torch
+
+    from dnsplatter_torch.models.dn_model import sh_degree_to_use
+    from dnsplatter_torch.ops import rasterize_cuda as rc
+    from dnsplatter_torch.parallel import collectives as C
+    from dnsplatter_torch.parallel import distributed as D
+    from dnsplatter_torch.parallel import sharding as S
+    from dnsplatter_torch.parallel import tile_sharding as T
+    from dnsplatter_torch.train.trainer import train_step
+
+    t0 = time.perf_counter()
+    step = trainer.step
+    i = step % len(trainer.data)
+    cam, batch = trainer.data.get(i)
+    batch = trainer._device_batch(i, batch)
+    sh = sh_degree_to_use(step, trainer.model_cfg)
+    rcfg = trainer._raster_cfg(cam)
+    mc, oc = trainer.model_cfg, trainer.optim_cfg
+    bg = torch.zeros(3, device=dev)
+    state = copy_state(trainer.params, trainer.alive, trainer.adam,
+                       trainer.stats)
+    capacity = trainer.params.capacity
+    D.shutdown_distributed()
+    ctx = D.init_distributed(f"127.0.0.1:{free_port()}", 1, 0)
+    if ctx.backend != "nccl" or not ctx.initialized:
+        raise AssertionError(f"world 1 on the card: {ctx}")
+    try:
+        mesh = D.make_hybrid_mesh(dp=1)
+        dp_fn = D.make_dp_train_step(mc, oc, rcfg, sh, mesh)
+        steps = {
+            "single": functools.partial(train_step, mc, oc, rcfg, sh,
+                                        background=bg),
+            "dp": functools.partial(dp_fn, backgrounds=bg[None],
+                                    frame_idx=[i]),
+            "gspmd": functools.partial(
+                S.make_sharded_train_step(mc, oc, rcfg, sh, mesh),
+                background=bg),
+            "tile": functools.partial(
+                T.make_tile_train_step(mc, oc, rcfg, sh, mesh),
+                background=bg),
+        }
+        rows, totals, want = {}, collections.Counter(), None
+        for name, fn in steps.items():
+            fn(*copy_state(*state), cam, batch, step)  # warm-up
+            args = copy_state(*state)
+            torch.cuda.synchronize()
+            rc.LAUNCHES.clear()
+            C.LOG.clear()
+            t = time.perf_counter()
+            out = fn(*args, cam, batch, step)
+            loss = float(out[3])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            launches = {k: rc.LAUNCHES[k] for k in STEP_KERNELS + REDUCERS}
+            coll = C.log_totals()
+            if launches != expected_step_launches(1, capacity,
+                                                  "reduce_segments_bykey"):
+                raise AssertionError(f"[12a {name}] launches {launches}")
+            totals.update(launches)
+            arrays = state_arrays(out[0], out[2])
+            row = {"ms": ms, "loss": loss, "launches": launches,
+                   "collective_calls": coll["calls"],
+                   "collective_bytes": coll["bytes"],
+                   "collectives": sorted({r["op"] for r in C.LOG})}
+            if want is None:
+                want = (loss, arrays)
+            else:
+                errs = scaled_errors(arrays, want[1])
+                row["max_scaled_err"] = max(e["max"] for e in errs.values())
+                row["bit_equal"] = all(e["bit_equal"] for e in errs.values())
+                if (abs(loss - want[0]) > PAR_LOSS_RTOL * abs(want[0])
+                        or row["max_scaled_err"] > PAR_WORLD1_TOL):
+                    raise AssertionError(f"[12a {name}] against train_step: "
+                                         f"loss {loss} vs {want[0]}, {errs}")
+            rows[name] = row
+            del out, args
+    finally:
+        D.shutdown_distributed()
+    summary = {"phase": "12a", "scene": "train_1m", "backend": "nccl",
+               "world": 1, "capacity": capacity, "step": step,
+               "pair_capacity": rcfg.pair_capacity, "steps": rows,
+               "seconds": time.perf_counter() - t0, "gpu": gpu}
+    return summary, dict(totals)
+
+
+def parallel_references(blob, dev, state0, rcfg, mc):
+    """The single-device references of phase 12b: PAR_STEPS train_steps
+    (frame s % 4), and PAR_STEPS steps of one Adam update on the mean of
+    frames 2s and 2s + 1's gradients (the dp semantics)."""
+    import torch
+
+    from dnsplatter_torch.models.gaussians import FIELDS, GaussianParams
+    from dnsplatter_torch.train.optim import OptimConfig
+    from dnsplatter_torch.train.trainer import (
+        apply_gradients,
+        loss_and_grads,
+        train_step,
+    )
+
+    cams, batches = blob["frames"](dev)
+    bg = torch.zeros(3, device=dev)
+    oc = OptimConfig()
+    st = copy_state(*state0)
+    single = []
+    for s in range(PAR_STEPS):
+        i = s % len(cams)
+        p, adam, stats, loss, _ = train_step(mc, oc, rcfg, 3, *st, cams[i],
+                                             batches[i], s, background=bg)
+        st = (p, st[1], adam, stats)
+        single.append(float(loss))
+    single_arrays = state_arrays(st[0], st[3])
+    st = copy_state(*state0)
+    dp = []
+    for s in range(PAR_STEPS):
+        outs = [loss_and_grads(mc, rcfg, 3, st[0], st[1], cams[i],
+                               batches[i], s, background=bg)
+                for i in ((2 * s) % 4, (2 * s + 1) % 4)]
+        g = GaussianParams(**{f: (getattr(outs[0][2], f)
+                                  + getattr(outs[1][2], f)) / 2.0
+                              for f in FIELDS})
+        p, adam, stats = apply_gradients(
+            oc, rcfg, st[0], st[1], st[2], st[3], g, outs[0][3] + outs[1][3],
+            torch.maximum(outs[0][4].radii, outs[1][4].radii),
+            outs[0][4].valid | outs[1][4].valid, s)
+        st = (p, st[1], adam, stats)
+        dp.append(float((outs[0][0] + outs[1][0]) / 2.0))
+    return {"single": (single, single_arrays),
+            "dp": (dp, state_arrays(st[0], st[3]))}
+
+
+def parallel_blob(inputs, capacity, pair_capacity):
+    """What the ranks of phase 12b load: the frames, the seed points, the
+    model configuration, the capacities."""
+    import dataclasses
+
+    import numpy as np
+
+    return {"cams": [(float(c.fx), float(c.fy), float(c.cx), float(c.cy),
+                      c.c2w.cpu().numpy(), c.width, c.height)
+                     for c in inputs["cams"]],
+            "batches": [{k: np.asarray(v.cpu() if hasattr(v, "cpu") else v)
+                         for k, v in b.items()}
+                        for b in inputs["data"].batches],
+            "seeds": inputs["seeds"], "capacity": capacity,
+            "pair_capacity": pair_capacity,
+            "model_cfg": dataclasses.asdict(inputs["model_cfg"])}
+
+
+def blob_frames(blob, dev):
+    import numpy as np
+    import torch
+
+    from dnsplatter_torch.ops.camera import Camera
+
+    cams = [Camera.create(fx, fy, cx, cy, np.asarray(c2w), w, h, device=dev)
+            for fx, fy, cx, cy, c2w, w, h in blob["cams"]]
+    batches = [{k: torch.as_tensor(v, dtype=torch.float32, device=dev)
+                for k, v in b.items()} for b in blob["batches"]]
+    return cams, batches
+
+
+def blob_state(blob, dev):
+    import numpy as np
+
+    from dnsplatter_torch.models.gaussians import init_from_points
+    from dnsplatter_torch.train.optim import init_adam
+    from dnsplatter_torch.train.strategy import init_stats
+
+    pts, cols = blob["seeds"]
+    params, alive, _ = init_from_points(np.random.default_rng(7), pts, cols,
+                                        sh_degree=3,
+                                        capacity=blob["capacity"],
+                                        device=dev)
+    return params, alive, init_adam(params), init_stats(blob["capacity"], dev)
+
+
+def parallel_rank(rank: int, port: int, tmp: Path) -> int:
+    """One rank of phase 12b (`chip_smoke.py --parallel-rank RANK PORT
+    DIR`): gloo on the shared card; PAR_STEPS steps each of the dp (dp 2),
+    gspmd and tile strategies from the blob's state, then a 2-rank Trainer
+    through one refinement event. Writes DIR/rank<r>.pt."""
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    from dnsplatter_torch.models.dn_model import ModelConfig
+    from dnsplatter_torch.ops import rasterize_cuda as rc
+    from dnsplatter_torch.ops.rasterize import RasterizeConfig
+    from dnsplatter_torch.parallel import collectives as C
+    from dnsplatter_torch.parallel import distributed as D
+    from dnsplatter_torch.parallel import sharding as S
+    from dnsplatter_torch.parallel import tile_sharding as T
+    from dnsplatter_torch.train.optim import OptimConfig
+    from dnsplatter_torch.train.trainer import TrainConfig, Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from dnsplatter_torch import resolve_device
+
+    ctx = D.init_distributed(f"127.0.0.1:{port}", 2, rank, backend="gloo")
+    dev = resolve_device(None)
+    blob = torch.load(tmp / "par_inputs.pt", weights_only=False)
+    cams, batches = blob_frames(blob, dev)
+    mc = ModelConfig(**blob["model_cfg"])
+    oc = OptimConfig()
+    state0 = blob_state(blob, dev)
+    bg = torch.zeros(3, device=dev)
+    while not (tmp / "go").exists():  # the parent's references run first
+        time.sleep(0.05)
+    res = {"rank": rank, "backend": ctx.backend, "strategies": {}}
+    launches = collections.Counter()
+    for kind in ("dp", "gspmd", "tile"):
+        mesh = D.make_hybrid_mesh(dp=2 if kind == "dp" else 1)
+        cap = blob["pair_capacity"] * (2 if kind == "tile" else 1)
+        rcfg = RasterizeConfig(width=WIDTH, height=HEIGHT, chunk=128,
+                               tile_block=32, pair_capacity=cap,
+                               backend="cuda", sort_scheme="depthq")
+        if kind == "dp":
+            fn = D.make_dp_train_step(mc, oc, rcfg, 3, mesh)
+        else:
+            make = (T.make_tile_train_step if kind == "tile"
+                    else S.make_sharded_train_step)
+            fn = make(mc, oc, rcfg, 3, mesh)
+        shard = (D.shard_state_hybrid if kind == "dp"
+                 else S.shard_gaussian_state)
+        st = shard(mesh, *copy_state(*state0))
+        rows = []
+        for s in range(PAR_STEPS):
+            if kind == "dp":
+                frames = [(2 * s + r) % len(cams) for r in range(2)]
+                i = frames[mesh.dp_axis.rank]
+                kw = dict(backgrounds=bg.expand(2, 3), frame_idx=frames)
+            else:
+                i = s % len(cams)
+                kw = dict(background=bg)
+            torch.cuda.synchronize()
+            rc.LAUNCHES.clear()
+            C.LOG.clear()
+            t = time.perf_counter()
+            p, adam, stats, loss, _ = fn(*st, cams[i], batches[i], s, **kw)
+            loss = float(loss)
+            torch.cuda.synchronize()
+            rows.append({"ms": (time.perf_counter() - t) * 1e3,
+                         "loss": loss, **C.log_totals(),
+                         "launches": {k: rc.LAUNCHES[k]
+                                      for k in STEP_KERNELS + REDUCERS}})
+            launches.update(rows[-1]["launches"])
+            st = (p, st[1], adam, stats)
+        arrays = {k: D.host_local_value(v, mesh)
+                  for k, v in state_arrays(st[0], st[3]).items()}
+        res["strategies"][kind] = {"steps": rows,
+                                   "shard_rows": st[0].capacity,
+                                   "mesh": mesh.shape}
+        if rank == 0:
+            torch.save(arrays, tmp / f"par_{kind}.pt")
+        del st, p, adam, stats
+    # -- the Trainer over two ranks, through one refinement event --
+    out_dir = tmp / f"trainer_rank{rank}"
+    tr = Trainer(Frames(cams, batches), blob["seeds"], model_cfg=mc,
+                 train_cfg=TrainConfig(devices=2, steps_per_eval_image=0),
+                 out_dir=out_dir)
+    n0 = tr._alive_count()
+    rc.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    hist = tr.train(PAR_TRAINER_STEPS, log_every=PAR_TRAINER_STEPS)
+    torch.cuda.synchronize()
+    trainer_launches = {k: rc.LAUNCHES[k] for k in STEP_KERNELS + REDUCERS}
+    launches.update(trainer_launches)
+    res["trainer"] = {
+        "n0": n0, "alive": tr._alive_count(), "loss": hist[-1]["loss"],
+        "ms_per_step": (time.perf_counter() - t) * 1e3 / PAR_TRAINER_STEPS,
+        "pair_capacity": tr.train_cfg.pair_capacity,
+        "capacity": tr.params.capacity * 2, "launches": trainer_launches,
+        "files": sorted(x.name for x in out_dir.glob("ckpt_*.npz"))
+        if out_dir.exists() else []}
+    res["launches"] = dict(launches)
+    torch.save(res, tmp / f"rank{rank}.pt")
+    D.shutdown_distributed()
+    return 0
+
+
+def run_parallel_gloo(dev, gpu, tmp: Path):
+    """Phase 12b: two ranks on the one card over gloo, on the train 100k
+    inputs (see `parallel_rank`); the parent holds each strategy's last
+    state against its single-device reference and the 2-rank Trainer's
+    alive count against a single-process Trainer's. Returns (summary,
+    launches summed over the ranks)."""
+    import contextlib
+    import os
+
+    import torch
+
+    from dnsplatter_torch.train.trainer import TrainConfig, Trainer
+
+    t0 = time.perf_counter()
+    _, n, shift, extent, cap = SCENES[0]
+    inputs = training_inputs(n, shift, extent, cap, 0, dev, REFINE_KW)
+    with contextlib.redirect_stdout(sys.stderr):
+        single_tr = Trainer(inputs["data"], inputs["seeds"],
+                            model_cfg=inputs["model_cfg"],
+                            train_cfg=TrainConfig(devices=0,
+                                                  steps_per_eval_image=0))
+    blob = parallel_blob(inputs, single_tr.params.capacity,
+                         single_tr.train_cfg.pair_capacity)
+    torch.save(blob, tmp / "par_inputs.pt")
+    port = free_port()
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                        "MASTER_PORT")}
+    logs = [open(tmp / f"rank{r}.log", "w") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "--parallel-rank", str(r), str(port),
+                               str(tmp)], env=env, cwd=REPO, stdout=logs[r],
+                              stderr=subprocess.STDOUT) for r in range(2)]
+    try:
+        # -- the references, while the ranks start --
+        blob["frames"] = lambda d: blob_frames(blob, d)
+        state0 = blob_state(blob, dev)
+        from dnsplatter_torch.ops.rasterize import RasterizeConfig
+
+        rcfg = RasterizeConfig(width=WIDTH, height=HEIGHT, chunk=128,
+                               tile_block=32,
+                               pair_capacity=blob["pair_capacity"],
+                               backend="cuda", sort_scheme="depthq")
+        refs = parallel_references(blob, dev, state0, rcfg,
+                                   inputs["model_cfg"])
+        del state0
+        n0_single = int(single_tr.alive.sum())
+        with contextlib.redirect_stdout(sys.stderr):
+            single_hist = single_tr.train(PAR_TRAINER_STEPS,
+                                          log_every=PAR_TRAINER_STEPS)
+        single_alive = int(single_tr.alive.sum())
+        del single_tr
+        torch.cuda.empty_cache()
+        (tmp / "go").touch()
+        deadline = time.monotonic() + PAR_TIMEOUT
+        codes = [p.wait(timeout=max(1.0, deadline - time.monotonic()))
+                 for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+        for f in logs:
+            f.close()
+    if codes != [0, 0]:
+        tails = "\n".join((tmp / f"rank{r}.log").read_text()[-3000:]
+                          for r in range(2))
+        raise AssertionError(f"[12b] rank exit codes {codes}:\n{tails}")
+    ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+             for r in range(2)]
+    rows, totals = {}, collections.Counter()
+    want_launch = expected_step_launches(1, blob["capacity"],
+                                         "reduce_segments_bykey")
+    for kind in ("dp", "gspmd", "tile"):
+        ref_loss, ref_arrays = refs["dp" if kind == "dp" else "single"]
+        got = torch.load(tmp / f"par_{kind}.pt", weights_only=False)
+        errs = scaled_errors({k: torch.as_tensor(v) for k, v in got.items()},
+                             {k: v.cpu() for k, v in ref_arrays.items()})
+        steps = [r["strategies"][kind]["steps"] for r in ranks]
+        losses = [s["loss"] for s in steps[0]]
+        for a, b in zip(losses, ref_loss):
+            if abs(a - b) > PAR_LOSS_RTOL * abs(b):
+                raise AssertionError(f"[12b {kind}] losses {losses} vs "
+                                     f"{ref_loss}")
+        bad = {k: e for k, e in errs.items()
+               if e["over"] > PAR_FLIP_FRAC or e["max"] > PAR_MAX_ERR}
+        if bad:
+            raise AssertionError(f"[12b {kind}] against one device: {bad}")
+        # every rank rasterizes the gathered rows (or its frame's whole
+        # state): the resident expansion at 126,976 Gaussians
+        for rank_steps in steps:
+            for s in rank_steps:
+                if s["launches"] != want_launch:
+                    raise AssertionError(f"[12b {kind}] launches "
+                                         f"{s['launches']}, expected "
+                                         f"{want_launch}")
+        ms = [s["ms"] for s in steps[0]]
+        rows[kind] = {
+            "mesh": ranks[0]["strategies"][kind]["mesh"],
+            "ms_per_step": statistics.median(ms), "ms": ms,
+            "losses": losses, "ref_losses": ref_loss,
+            "collective_calls_per_step": steps[0][-1]["calls"],
+            "collective_bytes_per_step": steps[0][-1]["bytes"],
+            "staged_bytes_per_step": steps[0][-1]["staged_bytes"],
+            "max_scaled_err": max(e["max"] for e in errs.values()),
+            "share_over_tol": max(e["over"] for e in errs.values()),
+            "bit_equal": all(e["bit_equal"] for e in errs.values())}
+    t0r, t1r = (r["trainer"] for r in ranks)
+    if not (t0r["alive"] == t1r["alive"] == single_alive):
+        raise AssertionError(f"[12b trainer] alive {t0r['alive']} / "
+                             f"{t1r['alive']} vs one process {single_alive}")
+    if t0r["alive"] == t0r["n0"]:
+        raise AssertionError("[12b trainer] the refinement event changed "
+                             "nothing")
+    if t0r["files"] != [f"ckpt_{PAR_TRAINER_STEPS:06d}.npz"] or t1r["files"]:
+        raise AssertionError(f"[12b trainer] checkpoints rank 0 "
+                             f"{t0r['files']}, rank 1 {t1r['files']}")
+    for r in ranks:
+        totals.update(r["launches"])
+    summary = {"phase": "12b", "scene": "train_100k", "backend": "gloo",
+               "world": 2, "card_shared": True, "strategies": rows,
+               "trainer": {"alive": t0r["alive"], "alive_single": single_alive,
+                           "n0": t0r["n0"], "n0_single": n0_single,
+                           "loss": t0r["loss"],
+                           "loss_single": single_hist[-1]["loss"],
+                           "ms_per_step": t0r["ms_per_step"],
+                           "pair_capacity": t0r["pair_capacity"],
+                           "files_rank0": t0r["files"],
+                           "files_rank1": t1r["files"]},
+               "launches_by_rank": [r["launches"] for r in ranks],
+               "seconds": time.perf_counter() - t0, "gpu": gpu}
+    return summary, dict(totals)
+
+
 def oracle_grad_check(dev):
     """Gradients of the kernel path (forward_tiles, backward_tiles, the
     key sort, the reduction) against torch.autograd through the dense
@@ -3009,6 +3527,11 @@ def main() -> int:
     *kept, trainer = run_training("train_1m", inputs, dev, gpu,
                                   TRAIN_STEPS_1M, False)
     keep(*kept)
+    step_ms_1m = kept[0]["ms_per_step"]
+    capacity_1m = trainer.params.capacity
+    # -- phase 12a: the multi-device steps at world 1 on this state --
+    summary12, launches12 = run_parallel_world1(trainer, dev, gpu)
+    keep(summary12, [], launches12)
     del trainer
     *kept, trainer = run_training(
         "train_1m_packed", inputs, dev, gpu, PATH_STEPS, False,
@@ -3036,6 +3559,16 @@ def main() -> int:
         torch.cuda.empty_cache()
         # -- the baselines, the viewer, batch runs --
         keep(*run_baselines(dev, gpu, Path(tmp)))
+        torch.cuda.empty_cache()
+        # -- phase 12b: two ranks over gloo on the one card --
+        summary12, launches12 = run_parallel_gloo(dev, gpu, Path(tmp))
+        keep(summary12, [], launches12)
+    from dnsplatter_torch.utils.scaling import scaling_statement
+
+    # at the size of the step it divides: the train 1m state and frame
+    print(json.dumps({"phase": "12", "scaling_statement": scaling_statement(
+        step_ms_1m, capacity=capacity_1m, width=WIDTH, height=HEIGHT),
+        "step_ms_1chip_from": "train_1m, phase 4", "gpu": gpu}), flush=True)
 
     src = "dnsplatter_torch/csrc/"
     pallas = "dnsplatter_tpu/ops/rasterize_pallas.py"
@@ -3081,4 +3614,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        sys.exit(parallel_rank(int(sys.argv[2]), int(sys.argv[3]),
+                               Path(sys.argv[4])))
     sys.exit(main())

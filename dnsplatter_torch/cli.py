@@ -134,6 +134,15 @@ def cmd_train(argv):
     if args.max_iterations is not None:
         train_cfg = dataclasses.replace(train_cfg,
                                         max_iterations=args.max_iterations)
+    ctx = None
+    if train_cfg.distributed or train_cfg.dp > 1 or train_cfg.devices > 1:
+        # Join the process group before any dataset loading or audit: under
+        # NCCL it picks this rank's card (one process a device, launched by
+        # torchrun). Idempotent: the Trainer finds this context.
+        from dnsplatter_torch.parallel import distributed as D
+
+        ctx = D.init_distributed(require_multiprocess=train_cfg.distributed,
+                                 device=args.device)
     data = _load_dataset(args, parser_cls, "train")
     trainer = Trainer(
         data=data,
@@ -147,7 +156,9 @@ def cmd_train(argv):
                                     - trainer.step))
     else:
         trainer.train()
-    print(f"checkpoint: {trainer.save_checkpoint()}")
+    path = trainer.save_checkpoint()  # every rank enters; rank 0 writes
+    if ctx is None or ctx.is_main:
+        print(f"checkpoint: {path}")
     return trainer
 
 

@@ -27,7 +27,7 @@ from dnsplatter_torch.models.regularization import (
 from dnsplatter_torch.ops.camera import Camera
 from dnsplatter_torch.ops.normals import normal_from_depth_image
 from dnsplatter_torch.ops.rasterize import RasterizeConfig
-from dnsplatter_torch.ops.render import RenderInfo, render
+from dnsplatter_torch.ops.render import RenderInfo, RenderOutputs, render
 
 # Viser's default background colour, used by splatfacto at eval when
 # background_color == "random".
@@ -104,6 +104,36 @@ def sh_degree_to_use(step: int, cfg: ModelConfig) -> int:
     return min(int(step) // cfg.sh_degree_interval, cfg.sh_degree)
 
 
+def pick_background(cfg: ModelConfig, training: bool,
+                    generator: Optional[torch.Generator],
+                    device) -> torch.Tensor:
+    """A uniform random colour drawn from `generator` when training with
+    background_color "random", else Viser's grey."""
+    if (cfg.background_color == "random" and training
+            and generator is not None):
+        return torch.rand(3, generator=generator,
+                          device=generator.device).to(device)
+    return torch.tensor(VISER_BACKGROUND, dtype=torch.float32, device=device)
+
+
+def outputs_dict(out: RenderOutputs) -> Dict[str, torch.Tensor]:
+    """The reference `get_outputs` dict of a rendered frame."""
+    # Unit-normalize the composited normal map and map it to [0, 1].
+    # rsqrt(|n|^2 + eps), not a norm: empty pixels composite a zero normal,
+    # where a norm's gradient is undefined and would reach whole tiles
+    # through the backward sums.
+    n = out.normal
+    n = n * torch.rsqrt(torch.sum(n * n, dim=-1, keepdim=True) + 1e-12)
+    return {
+        "rgb": out.rgb,
+        "depth": out.depth,
+        "normal": (n + 1.0) * 0.5,
+        "surface_normal": out.surface_normal,
+        "accumulation": out.accumulation,
+        "background": out.background,
+    }
+
+
 def get_outputs(
     params: GaussianParams,
     alive: torch.Tensor,
@@ -118,37 +148,16 @@ def get_outputs(
     generator: Optional[torch.Generator] = None,
     crop_box=None,
 ) -> Tuple[Dict[str, torch.Tensor], RenderInfo]:
-    """The reference `get_outputs` dict. Without a `background`: a uniform
-    random colour drawn from `generator` when training with
-    background_color "random", else Viser's grey."""
-    dev = params.means.device
+    """The reference `get_outputs` dict. Without a `background`: see
+    `pick_background`."""
     if background is None:
-        if (cfg.background_color == "random" and training
-                and generator is not None):
-            background = torch.rand(3, generator=generator,
-                                    device=generator.device).to(dev)
-        else:
-            background = torch.tensor(VISER_BACKGROUND, dtype=torch.float32,
-                                      device=dev)
+        background = pick_background(cfg, training, generator,
+                                     params.means.device)
     out, info = render(params, alive, camera, raster_cfg,
                        sh_degree_to_use=sh_degree, background=background,
                        rasterize_mode=cfg.rasterize_mode, xys_sink=xys_sink,
                        absgrad_sink=absgrad_sink, crop_box=crop_box)
-    # Unit-normalize the composited normal map and map it to [0, 1].
-    # rsqrt(|n|^2 + eps), not a norm: empty pixels composite a zero normal,
-    # where a norm's gradient is undefined and would reach whole tiles
-    # through the backward sums.
-    n = out.normal
-    n = n * torch.rsqrt(torch.sum(n * n, dim=-1, keepdim=True) + 1e-12)
-    outputs = {
-        "rgb": out.rgb,
-        "depth": out.depth,
-        "normal": (n + 1.0) * 0.5,
-        "surface_normal": out.surface_normal,
-        "accumulation": out.accumulation,
-        "background": out.background,
-    }
-    return outputs, info
+    return outputs_dict(out), info
 
 
 def compute_loss(

@@ -46,28 +46,33 @@ class RenderInfo:
     means2d: torch.Tensor  # (N, 2) screen centers
 
 
-def render(
+@dataclasses.dataclass(frozen=True)
+class ScreenSpace:
+    """The per-Gaussian inputs of one rasterizer pass, before binning."""
+
+    means2d: torch.Tensor  # (N, 2)
+    conics: torch.Tensor  # (N, 3)
+    depths: torch.Tensor  # (N,) camera z
+    opacities: torch.Tensor  # (N,) post-sigmoid (x compensation if antialiased)
+    features: torch.Tensor  # (N, 7) rgb, camera-frame normal, depth
+    valid: torch.Tensor  # (N,) bool: in the frustum, alive and in crop_box
+    radii_xy: torch.Tensor  # (N, 2) per-axis screen extents
+    radii: torch.Tensor  # (N,) screen radii (0 = culled)
+
+
+def screen_space(
     params: GaussianParams,
     alive: torch.Tensor,
     camera: Camera,
-    raster_cfg: RasterizeConfig,
     sh_degree_to_use: int = 3,
-    background: Optional[torch.Tensor] = None,
     rasterize_mode: str = "classic",
-    xys_sink: Optional[torch.Tensor] = None,
-    absgrad_sink: Optional[torch.Tensor] = None,
     near_plane: float = 0.01,
     far_plane: float = 1e10,
     crop_box: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-) -> Tuple[RenderOutputs, RenderInfo]:
-    """Render one camera. `alive` (C,) {0,1} masks capacity padding;
-    `crop_box` (lo, hi) keeps only Gaussians inside a world AABB.
-    `xys_sink` / `absgrad_sink`: optional (C, 2) zeros whose gradients are
-    the screen-space mean gradients / their absolute values."""
-    dev = params.means.device
-    if background is None:
-        background = torch.zeros(3, device=dev)
-
+) -> ScreenSpace:
+    """Projection, SH colours and per-Gaussian normals: everything of
+    `render` that is per Gaussian, so a sharded caller can run it on its own
+    rows."""
     viewmat = camera.viewmat()
     opac_raw = torch.sigmoid(params.opacities)
     proj = project_gaussians(
@@ -94,14 +99,16 @@ def render(
                                    cam_pos)
     n_cam = world_to_camera_normals(n_world, camera.c2w)
     feats = torch.cat([colors, n_cam, proj.depths[:, None]], dim=-1)
+    return ScreenSpace(means2d=proj.means2d, conics=proj.conics,
+                       depths=proj.depths, opacities=opac, features=feats,
+                       valid=valid, radii_xy=proj.radii_xy, radii=proj.radii)
 
-    means2d = proj.means2d
-    if xys_sink is not None:
-        means2d = means2d + xys_sink
-    img, alpha = rasterize(means2d, proj.conics, proj.depths, opac, feats,
-                           valid, raster_cfg, absgrad_sink=absgrad_sink,
-                           radii=proj.radii_xy)
 
+def finish(img: torch.Tensor, alpha: torch.Tensor, camera: Camera,
+           background: torch.Tensor) -> RenderOutputs:
+    """The image-space part of `render`: the background composite, the
+    expected depth and the depth-gradient normals of a composited frame
+    (H, W, 7) with its alpha."""
     rgb = img[..., 0:3] + (1.0 - alpha) * background[None, None, :]
     # clip as min(max(x, 0), 1): at a tie the gradient halves, as the JAX
     # package's jnp.clip does (torch.clamp would pass it whole)
@@ -117,9 +124,39 @@ def render(
         max_depth)
     surface_normal = surface_normal_output(depth.detach(), camera.fx,
                                            camera.fy, camera.cx, camera.cy)
-    outputs = RenderOutputs(rgb=rgb, depth=depth, normal=img[..., 3:6],
-                            surface_normal=surface_normal,
-                            accumulation=alpha, background=background)
-    info = RenderInfo(radii=proj.radii, depths=proj.depths, valid=valid,
-                      means2d=proj.means2d)
-    return outputs, info
+    return RenderOutputs(rgb=rgb, depth=depth, normal=img[..., 3:6],
+                         surface_normal=surface_normal, accumulation=alpha,
+                         background=background)
+
+
+def render(
+    params: GaussianParams,
+    alive: torch.Tensor,
+    camera: Camera,
+    raster_cfg: RasterizeConfig,
+    sh_degree_to_use: int = 3,
+    background: Optional[torch.Tensor] = None,
+    rasterize_mode: str = "classic",
+    xys_sink: Optional[torch.Tensor] = None,
+    absgrad_sink: Optional[torch.Tensor] = None,
+    near_plane: float = 0.01,
+    far_plane: float = 1e10,
+    crop_box: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[RenderOutputs, RenderInfo]:
+    """Render one camera. `alive` (C,) {0,1} masks capacity padding;
+    `crop_box` (lo, hi) keeps only Gaussians inside a world AABB.
+    `xys_sink` / `absgrad_sink`: optional (C, 2) zeros whose gradients are
+    the screen-space mean gradients / their absolute values."""
+    if background is None:
+        background = torch.zeros(3, device=params.means.device)
+    ss = screen_space(params, alive, camera, sh_degree_to_use,
+                      rasterize_mode, near_plane, far_plane, crop_box)
+    means2d = ss.means2d
+    if xys_sink is not None:
+        means2d = means2d + xys_sink
+    img, alpha = rasterize(means2d, ss.conics, ss.depths, ss.opacities,
+                           ss.features, ss.valid, raster_cfg,
+                           absgrad_sink=absgrad_sink, radii=ss.radii_xy)
+    info = RenderInfo(radii=ss.radii, depths=ss.depths, valid=ss.valid,
+                      means2d=ss.means2d)
+    return finish(img, alpha, camera, background), info

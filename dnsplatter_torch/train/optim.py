@@ -216,15 +216,21 @@ def init_cam_opt(n_cams: int, device=None) -> CamOptState:
            for f in CAM_OPT_FIELDS[:-1]}, count=0)
 
 
-def cam_opt_update(cfg: OptimConfig, state: CamOptState, cam_i: int,
+def cam_opt_update(cfg: OptimConfig, state: CamOptState, cam_i,
                    gadj: torch.Tensor, step: int) -> None:
     """Add this step's pose gradient (6,) to camera `cam_i`'s accumulator
-    and, on every `accum_camera_opt`-th step, apply one Adam update over all
-    cameras at the learning rate decaying exponentially from
-    `lr_camera_opt` to `lr_camera_opt_final` over `max_steps`. Plain Adam
-    on the summed gradients; rows without gradients still decay their
-    moments, as one optimizer over the stacked tangents does."""
-    state.accum[cam_i] += gadj
+    (or, with an index tensor (k,), the gradients (k, 6) to their cameras,
+    a repeated index adding up) and, on every `accum_camera_opt`-th step,
+    apply one Adam update over all cameras at the learning rate decaying
+    exponentially from `lr_camera_opt` to `lr_camera_opt_final` over
+    `max_steps`. Plain Adam on the summed gradients; rows without gradients
+    still decay their moments, as one optimizer over the stacked tangents
+    does."""
+    if torch.is_tensor(cam_i):
+        state.accum.index_add_(0, cam_i.to(state.accum.device),
+                               gadj.reshape(-1, 6))
+    else:
+        state.accum[cam_i] += gadj
     if (step + 1) % cfg.accum_camera_opt != 0:
         return
     acc = state.accum

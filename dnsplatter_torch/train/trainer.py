@@ -27,13 +27,23 @@ HTTP thread. Those read the state at a step boundary: the loop holds
 `state_lock` over each step and its refinement, and the render copies the
 parameters under it (refinement writes some in place).
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-`devices > 1`, `distributed` / `dp > 1`.
+Multi-device training runs one process a device under torch.distributed
+(`parallel/`): `devices = N` shards the Gaussian state over the N ranks of
+the world and steps by `parallel_strategy` ("gspmd": every rank renders the
+whole frame from the gathered payload; "tile": every rank rasterizes a slab
+of tile rows); `dp > 1` or `distributed` lays the world out as (dp, gauss)
+and each dp rank trains on its own frame, the gradients averaged. Every
+rank holds its shard; what reads the whole state (refinement, the log's
+alive count, eval images, checkpoints, the viewer's orbit renders) gathers
+it, every rank entering the gather, and only rank 0 writes. Refinement
+runs on the gathered state, the same on every rank with the same draws,
+and the state is sharded again after it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import threading
 import time
@@ -147,10 +157,24 @@ def _check_ported(model_cfg: ModelConfig, tc: TrainConfig) -> None:
                          f"refine_every ({model_cfg.refine_every}) and "
                          f"sh_degree_interval "
                          f"({model_cfg.sh_degree_interval})")
-    if (tc.devices and tc.devices > 1) or tc.distributed or tc.dp > 1:
-        raise NotImplementedError(
-            "multi-device training (devices > 1, distributed, dp > 1) is "
-            "not ported yet: ROADMAP.md queue A item 14")
+    if tc.parallel_strategy not in ("gspmd", "tile"):
+        raise ValueError(f"parallel_strategy {tc.parallel_strategy!r}: "
+                         "'gspmd' or 'tile'")
+
+
+def single_device_outputs(params: GaussianParams, alive: torch.Tensor,
+                          camera: Camera, model_cfg: ModelConfig,
+                          raster_cfg: RasterizeConfig, sh_degree: int,
+                          background, absgrad_sink, generator):
+    """The frame's outputs on one device: (outputs, RenderInfo, the rows
+    the loss reads (scales, opacities), their alive mask). The sharded
+    strategies pass their own function of the same signature
+    (`parallel/sharding.py`, `parallel/tile_sharding.py`)."""
+    outputs, info = get_outputs(
+        params, alive, camera, model_cfg, raster_cfg, sh_degree=sh_degree,
+        background=background, absgrad_sink=absgrad_sink, training=True,
+        generator=generator)
+    return outputs, info, params, alive
 
 
 def loss_and_grads(
@@ -166,21 +190,23 @@ def loss_and_grads(
     generator: Optional[torch.Generator] = None,
     pearson_corners=None,
     cam_adj: Optional[torch.Tensor] = None,
+    outputs_fn=single_device_outputs,
 ):
     """The loss of one frame and its gradients: (loss, loss_dict, grads as
     GaussianParams, absgrad (C, 2), RenderInfo). With `cam_adj`, a (6,)
     pose tangent that requires grad, the frame is rendered from the
-    adjusted camera and the tangent's gradient is left in `cam_adj.grad`."""
+    adjusted camera and the tangent's gradient is left in `cam_adj.grad`.
+    `outputs_fn` renders (see `single_device_outputs`); under a sharded one
+    `params` / `alive` are this rank's rows and so are the gradients."""
     leaves = GaussianParams(**{
         f: getattr(params, f).detach().requires_grad_(True) for f in FIELDS})
     sink = torch.zeros_like(params.means[:, :2]).requires_grad_(True)
     if cam_adj is not None:
         camera = apply_adjustment(camera, cam_adj)
-    outputs, info = get_outputs(
-        leaves, alive, camera, model_cfg, raster_cfg, sh_degree=sh_degree,
-        background=background, absgrad_sink=sink, training=True,
-        generator=generator)
-    loss, loss_dict = compute_loss(outputs, batch, leaves, alive, camera,
+    outputs, info, rows, rows_alive = outputs_fn(
+        leaves, alive, camera, model_cfg, raster_cfg, sh_degree, background,
+        sink, generator)
+    loss, loss_dict = compute_loss(outputs, batch, rows, rows_alive, camera,
                                    model_cfg, step,
                                    pearson_corners=pearson_corners,
                                    generator=generator)
@@ -195,6 +221,23 @@ def loss_and_grads(
     gparams = GaussianParams(**dict(zip(FIELDS, grads[:-1])))
     loss_dict = {k: v.detach() for k, v in loss_dict.items()}
     return loss.detach(), loss_dict, gparams, grads[-1], info
+
+
+def apply_gradients(optim_cfg: OptimConfig, raster_cfg: RasterizeConfig,
+                    params: GaussianParams, alive: torch.Tensor,
+                    adam: AdamState, stats: RefineStats,
+                    gparams: GaussianParams, gabs: torch.Tensor,
+                    radii: torch.Tensor, valid: torch.Tensor, step: int
+                    ) -> Tuple[GaussianParams, AdamState, RefineStats]:
+    """Dead capacity-padding slots frozen by `alive`, the Adam step (`adam`
+    in place), the densification statistics."""
+    gparams = GaussianParams(**{
+        f: getattr(gparams, f) * alive.reshape(
+            (-1,) + (1,) * (getattr(gparams, f).ndim - 1)) for f in FIELDS})
+    new_params, adam = adam_step(optim_cfg, params, gparams, adam, step)
+    max_size = float(max(raster_cfg.width, raster_cfg.height))
+    return new_params, adam, update_stats(stats, gabs, radii, valid,
+                                          max_size)
 
 
 def train_step(
@@ -214,6 +257,7 @@ def train_step(
     pearson_corners=None,
     cam_state: Optional[CamOptState] = None,
     cam_i: int = 0,
+    outputs_fn=single_device_outputs,
 ) -> Tuple[GaussianParams, AdamState, RefineStats, torch.Tensor,
            Dict[str, torch.Tensor]]:
     """One optimizer step on one frame: binary opacities, loss and
@@ -223,7 +267,7 @@ def train_step(
     `get_outputs`); `pearson_corners` feed depth_loss_type "pearson". With
     `cam_state` (camera_optimizer_mode "SO3xR3") the frame is rendered from
     camera `cam_i`'s adjusted pose and the pose optimizer takes its step
-    too, `cam_state` updated in place."""
+    too, `cam_state` updated in place. `outputs_fn`: see `loss_and_grads`."""
     step = int(step)
     params = apply_binary_opacities(params, alive, model_cfg, step)
     adj = None
@@ -232,14 +276,10 @@ def train_step(
     loss, loss_dict, gparams, gabs, info = loss_and_grads(
         model_cfg, raster_cfg, sh_degree, params, alive, camera, batch, step,
         background=background, generator=generator,
-        pearson_corners=pearson_corners, cam_adj=adj)
-    # Freeze dead capacity-padding slots.
-    gparams = GaussianParams(**{
-        f: getattr(gparams, f) * alive.reshape(
-            (-1,) + (1,) * (getattr(gparams, f).ndim - 1)) for f in FIELDS})
-    new_params, adam = adam_step(optim_cfg, params, gparams, adam, step)
-    max_size = float(max(raster_cfg.width, raster_cfg.height))
-    stats = update_stats(stats, gabs, info.radii, info.valid, max_size)
+        pearson_corners=pearson_corners, cam_adj=adj, outputs_fn=outputs_fn)
+    new_params, adam, stats = apply_gradients(
+        optim_cfg, raster_cfg, params, alive, adam, stats, gparams, gabs,
+        info.radii, info.valid, step)
     if cam_state is not None:
         cam_opt_update(optim_cfg, cam_state, cam_i, adj.grad, step)
     return new_params, adam, stats, loss, loss_dict
@@ -261,6 +301,14 @@ class Trainer:
         device=None,
     ):
         _check_ported(model_cfg, train_cfg)
+        # Join the process group before any tensor is made: under NCCL it
+        # picks this rank's card.
+        self.dist = None
+        if (train_cfg.distributed or train_cfg.dp > 1
+                or train_cfg.devices > 1):
+            from dnsplatter_torch.parallel import distributed as D
+
+            self.dist = D.init_distributed(device=device)
         self.device = resolve_device(device)
         self.data = data
         self.model_cfg = model_cfg
@@ -303,19 +351,50 @@ class Trainer:
                 self.train_cfg = dataclasses.replace(train_cfg,
                                                      pair_capacity=cap)
                 print(f"auto pair capacity: {cap}", flush=True)
+        self.mesh = None
+        self.dp = 1
+        if train_cfg.distributed or train_cfg.dp > 1:
+            from dnsplatter_torch.parallel.distributed import make_hybrid_mesh
+
+            self.dp = (train_cfg.dp if train_cfg.dp > 1
+                       else max(self.dist.process_count, 1))
+            if train_cfg.devices and (train_cfg.devices
+                                      != self.dist.process_count):
+                raise ValueError(
+                    f"--train.devices {train_cfg.devices} with "
+                    f"{self.dist.process_count} processes: one process a "
+                    "device (torchrun --nproc-per-node)")
+            if model_cfg.num_downscales > 0:
+                raise NotImplementedError(
+                    "progressive downscaling is not wired into the dp "
+                    "step (dn-splatter default num_downscales=0)")
+            self.mesh = make_hybrid_mesh(dp=self.dp)
+        elif train_cfg.devices > 1:
+            from dnsplatter_torch.parallel.sharding import make_mesh
+
+            self.mesh = make_mesh(train_cfg.devices)
+        if self.mesh is not None:
+            self._shard_state()
         self.step = 0
         self._history: list = []
         # Carried (all zeros) with the optimizer off too, so checkpoints
         # keep the JAX package's keys.
         self.cam_opt = init_cam_opt(len(data), self.device)
         self._writers = []
-        if self.out_dir:
+        if self.out_dir and self._is_main():
             self._writers.append(JsonlWriter(self.out_dir))
             if train_cfg.tensorboard:
                 self._writers.append(TensorboardWriter(self.out_dir / "tb"))
         self.state_lock = threading.Lock()
+        # Sharded, the viewer's thread asks the loop for the state: a
+        # request is carried to every rank at a step boundary, the ranks
+        # gather together, and rank 0 hands the copy over.
+        self._view_request = threading.Event()
+        self._view_ready = threading.Event()
+        self._view_lock = threading.Lock()
+        self._view_state = None
         self.viewer = None
-        if train_cfg.viewer:
+        if train_cfg.viewer and self._is_main():
             from dnsplatter_torch.utils.viewer import Viewer
 
             self.viewer = Viewer(port=train_cfg.viewer_port)
@@ -356,7 +435,13 @@ class Trainer:
         self.audited_pairs = worst
         if worst <= 0:
             return None
-        cap = max(int(worst * tc.auto_capacity_margin), 1 << 16)
+        cap = int(worst * tc.auto_capacity_margin)
+        if tc.devices > 1:
+            # the tile-sharded renderer divides pair_capacity per slab
+            # (parallel/tile_sharding.slab_config), and a dense slab can
+            # hold most of a frame's pairs: size each for the whole frame
+            cap *= tc.devices
+        cap = max(cap, 1 << 16)
         return -(-cap // tc.chunk) * tc.chunk
 
     def _raster_cfg(self, camera: Camera,
@@ -413,11 +498,14 @@ class Trainer:
         at the trainer's audited pair capacity: a million Gaussians seen
         from an orbit can list more pairs than that, and an overflowing
         list drops Gaussians."""
-        with self.state_lock:
-            params = GaussianParams(**{
-                f: getattr(self.params, f).clone() for f in FIELDS})
-            alive = self.alive.clone()
-            pair_capacity = self.train_cfg.pair_capacity
+        if self.mesh is not None:
+            params, alive, pair_capacity = self._requested_state()
+        else:
+            with self.state_lock:
+                params = GaussianParams(**{
+                    f: getattr(self.params, f).clone() for f in FIELDS})
+                alive = self.alive.clone()
+                pair_capacity = self.train_cfg.pair_capacity
         cam = self.orbit_camera(params, alive, az_deg, el_deg, radius, scale)
         out, _ = get_outputs(
             params, alive, cam, self.model_cfg,
@@ -426,14 +514,103 @@ class Trainer:
             background=torch.zeros(3, device=self.device))
         return {k: out[k].cpu().numpy() for k in ("rgb", "depth", "normal")}
 
+    def _requested_state(self, timeout: float = 120.0):
+        """On the viewer's thread, sharded: the whole (params, alive) and
+        the pair capacity, gathered by every rank at the next step
+        boundary (`_serve_view`). This thread issues no collective."""
+        with self._view_lock:
+            self._view_ready.clear()
+            self._view_request.set()
+            if not self._view_ready.wait(timeout):
+                raise TimeoutError("no step boundary came to gather the "
+                                   "state for the viewer")
+            return self._view_state
+
+    def _serve_view(self) -> None:
+        """At a step boundary, sharded, with the viewer on: one int all
+        ranks of the Gaussian axis agree on says whether rank 0's viewer
+        waits; if so they gather (params, alive) and rank 0 hands it over."""
+        from dnsplatter_torch.parallel import collectives as C
+
+        axis = self.mesh.gauss_axis
+        flag = torch.tensor([float(self._view_request.is_set())],
+                            device=self.device)
+        if not float(C.all_reduce_max(flag, axis)):
+            return
+        params, alive = self._full_params()
+        if self.viewer is not None:
+            # a copy: the loop may write the gathered tensors of one shard
+            params = GaussianParams(**{f: getattr(params, f).clone()
+                                       for f in FIELDS})
+            self._view_state = (params, alive.clone(),
+                                self.train_cfg.pair_capacity)
+            self._view_request.clear()
+            self._view_ready.set()
+
+    # -- sharded state ----------------------------------------------------
+
+    def _is_main(self) -> bool:
+        """Checkpoints, writers and the viewer are rank 0's."""
+        return self.dist is None or self.dist.is_main
+
+    def _shard_state(self) -> None:
+        """Keep this rank's rows of the (full, identical) state."""
+        from dnsplatter_torch.parallel.distributed import shard_state_hybrid
+
+        self.params, self.alive, self.adam, self.stats = shard_state_hybrid(
+            self.mesh, self.params, self.alive, self.adam, self.stats)
+
+    def _gather_state(self) -> None:
+        """The full state on every rank (every rank must enter)."""
+        from dnsplatter_torch.parallel.distributed import gather_state_hybrid
+
+        self.params, self.alive, self.adam, self.stats = gather_state_hybrid(
+            self.mesh, self.params, self.alive, self.adam, self.stats)
+
+    def _full_params(self) -> Tuple[GaussianParams, torch.Tensor]:
+        """The whole (params, alive): gathered when sharded (every rank
+        must enter)."""
+        if self.mesh is None:
+            return self.params, self.alive
+        from dnsplatter_torch.parallel.collectives import gather_state
+
+        full = gather_state([getattr(self.params, f) for f in FIELDS]
+                            + [self.alive], self.mesh.gauss_axis)
+        return GaussianParams(**dict(zip(FIELDS, full))), full[-1]
+
+    def _alive_count(self) -> int:
+        """Alive Gaussians of the whole state (a sum over the Gaussian axis
+        when sharded: every rank must enter)."""
+        n = self.alive.sum().reshape(1)
+        if self.mesh is not None:
+            from dnsplatter_torch.parallel.collectives import all_reduce_sum
+
+            n = all_reduce_sum(n, self.mesh.gauss_axis)
+        return int(n)
+
     # -- refinement -------------------------------------------------------
 
     def _refinement(self, camera: Camera) -> None:
-        """Which refinement action fires after this step."""
+        """Which refinement action fires after this step. Sharded, it runs
+        on the gathered state, identical on every rank with the same
+        draws, and the state is sharded again after it: O(state) bytes once
+        every `refine_every` steps."""
         cfg = self.model_cfg
         step = self.step
         if step <= cfg.warmup_length or step % cfg.refine_every != 0:
             return
+        if self.mesh is not None:
+            self._gather_state()
+            try:
+                self._refine(camera)
+            finally:
+                self._shard_state()
+        else:
+            self._refine(camera)
+
+    def _refine(self, camera: Camera) -> None:
+        cfg = self.model_cfg
+        step = self.step
         reset_interval = cfg.reset_alpha_every * cfg.refine_every
         num_train = len(self.data)
         do_densify = (
@@ -500,8 +677,9 @@ class Trainer:
         data = eval_data or self.data
         cam, batch = data.get(index % len(data))
         sh = sh_degree_to_use(self.step, self.model_cfg)
+        params, alive = self._full_params()
         out, _ = get_outputs(
-            self.params, self.alive, cam, self.model_cfg,
+            params, alive, cam, self.model_cfg,
             self._raster_cfg(cam), sh_degree=sh, training=False,
             background=torch.zeros(3, device=self.device))
         if self.viewer is not None:
@@ -512,7 +690,7 @@ class Trainer:
         if "sensor_depth" in batch:
             row.update({f"depth_{k}": v for k, v in M.depth_metrics(
                 out["depth"], self._tensor(batch["sensor_depth"])).items()})
-        row["gaussian_count"] = int(self.alive.sum())
+        row["gaussian_count"] = int(alive.sum())
         return row
 
     # -- the loop ---------------------------------------------------------
@@ -546,9 +724,19 @@ class Trainer:
         if sh is None:
             sh = sh_degree_to_use(self.step, self.model_cfg)
         pose_opt = self.model_cfg.camera_optimizer_mode != "off"
+        step_fn = functools.partial(train_step, self.model_cfg,
+                                    self.optim_cfg, self._raster_cfg(cam),
+                                    sh)
+        if self.mesh is not None:
+            from dnsplatter_torch.parallel import sharding, tile_sharding
+
+            make = (tile_sharding.make_tile_train_step
+                    if self.train_cfg.parallel_strategy == "tile"
+                    else sharding.make_sharded_train_step)
+            step_fn = make(self.model_cfg, self.optim_cfg,
+                           self._raster_cfg(cam), sh, self.mesh)
         (self.params, self.adam, self.stats, loss, self.last_loss_dict
-         ) = train_step(
-            self.model_cfg, self.optim_cfg, self._raster_cfg(cam), sh,
+         ) = step_fn(
             self.params, self.alive, self.adam, self.stats, cam,
             self._device_batch(cam_i, batch), self.step,
             generator=self.generator,
@@ -563,6 +751,9 @@ class Trainer:
         n = len(self.data)
         t0 = time.time()
         k_dispatch = max(1, self.train_cfg.steps_per_dispatch)
+        if self.dp > 1:
+            k_dispatch = 1  # the dp step already takes dp frames a step
+        serve_view = self.mesh is not None and self.train_cfg.viewer
         target = self.step + total
         while self.step < target:
             d = self._downscale_factor()
@@ -571,17 +762,23 @@ class Trainer:
             k_now = min(k_dispatch, target - self.step) if d == 1 else 1
             sh = sh_degree_to_use(self.step, self.model_cfg)
             with self.state_lock:
-                for _ in range(k_now):
-                    cam_i = self.step % n
-                    cam, batch = self.data.get(cam_i)
-                    if d > 1:
-                        cam, batch = self._downscaled(cam_i, cam, batch, d)
-                        cam_i = (cam_i, d)
-                    loss = self.train_one(cam, batch, cam_i, sh)
+                if self.dp > 1:
+                    cam, loss = self._dispatch_dp(sh, n)
+                else:
+                    for _ in range(k_now):
+                        cam_i = self.step % n
+                        cam, batch = self.data.get(cam_i)
+                        if d > 1:
+                            cam, batch = self._downscaled(cam_i, cam, batch,
+                                                          d)
+                            cam_i = (cam_i, d)
+                        loss = self.train_one(cam, batch, cam_i, sh)
                 self._refinement(cam)
+                if serve_view:
+                    self._serve_view()
             if self.step % log_every == 0 or self.step == target:
                 loss_v = float(loss)
-                n_alive = int(self.alive.sum())
+                n_alive = self._alive_count()
                 dt = time.time() - t0
                 row = dict(step=self.step, loss=loss_v, n_gaussians=n_alive,
                            wall_s=round(dt, 2))
@@ -590,14 +787,16 @@ class Trainer:
                     wtr.write_scalars(self.step, row)
                 if self.viewer is not None:
                     self.viewer.update(stats=row)
-                print(f"step {self.step:6d}  loss {loss_v:.4f}  "
-                      f"gaussians {n_alive}  {dt:.1f}s", flush=True)
+                if self._is_main():
+                    print(f"step {self.step:6d}  loss {loss_v:.4f}  "
+                          f"gaussians {n_alive}  {dt:.1f}s", flush=True)
             spe = self.train_cfg.steps_per_eval_image
             if spe and self.step % spe == 0:
                 m = self.eval_image(self.step // spe, eval_data)
-                print(f"  eval @ {self.step}: psnr {m['rgb_psnr']:.2f} "
-                      f"ssim {m['rgb_ssim']:.3f} "
-                      f"gaussians {m['gaussian_count']}", flush=True)
+                if self._is_main():
+                    print(f"  eval @ {self.step}: psnr "
+                          f"{m['rgb_psnr']:.2f} ssim {m['rgb_ssim']:.3f} "
+                          f"gaussians {m['gaussian_count']}", flush=True)
                 self._history.append(dict(step=self.step, **m))
                 for wtr in self._writers:
                     wtr.write_scalars(self.step, m)
@@ -607,6 +806,28 @@ class Trainer:
         if self.out_dir:
             self.save_checkpoint()
         return self._history
+
+    def _dispatch_dp(self, sh: int, n: int):
+        """One data-parallel step: dp rank r trains on frame
+        (step * dp + r) % n, the gradients averaged over dp. Returns (this
+        rank's camera, the mean loss)."""
+        from dnsplatter_torch.parallel.distributed import make_dp_train_step
+
+        dp = self.dp
+        gidx = [(self.step * dp + r) % n for r in range(dp)]
+        i = gidx[self.mesh.dp_axis.rank]
+        cam, batch = self.data.get(i)
+        pose_opt = self.model_cfg.camera_optimizer_mode != "off"
+        step_fn = make_dp_train_step(self.model_cfg, self.optim_cfg,
+                                     self._raster_cfg(cam), sh, self.mesh)
+        (self.params, self.adam, self.stats, loss, self.last_loss_dict
+         ) = step_fn(self.params, self.alive, self.adam, self.stats, cam,
+                     self._device_batch(i, batch), self.step,
+                     generator=self.generator,
+                     cam_state=self.cam_opt if pose_opt else None,
+                     frame_idx=gidx)
+        self.step += 1
+        return cam, loss
 
     def _downscale_factor(self) -> int:
         """Progressive resolution (num_downscales / resolution_schedule;
@@ -636,15 +857,27 @@ class Trainer:
     # -- checkpoints (npz: the state is a flat dict of arrays) ------------
 
     def save_checkpoint(self, path: Optional[Path] = None) -> Path:
+        """Write the state (the JAX package's npz keys) and config.json.
+        Sharded, every rank must enter (the state is gathered) and rank 0
+        alone writes; every rank returns the path."""
         path = Path(path) if path else (
             self.out_dir / f"ckpt_{self.step:06d}.npz")
+        params, alive, adam = self.params, self.alive, self.adam
+        if self.mesh is not None:
+            from dnsplatter_torch.parallel.distributed import (
+                gather_state_hybrid,
+            )
+
+            params, alive, adam, _ = gather_state_hybrid(
+                self.mesh, params, alive, adam, self.stats)
+        if not self._is_main():
+            return path
         path.parent.mkdir(parents=True, exist_ok=True)
-        flat = {f"params.{f}": a
-                for f, a in params_to_numpy(self.params).items()}
-        flat["alive"] = self.alive.cpu().numpy()
+        flat = {f"params.{f}": a for f, a in params_to_numpy(params).items()}
+        flat["alive"] = alive.cpu().numpy()
         flat["step"] = np.asarray(self.step)
         flat.update(cam_opt_to_numpy(self.cam_opt))
-        flat.update(adam_to_numpy(self.adam))
+        flat.update(adam_to_numpy(adam))
         np.savez_compressed(path, **flat)
         meta = dataclasses.asdict(self.model_cfg)
         (path.parent / "config.json").write_text(json.dumps(meta, indent=2))
@@ -671,6 +904,8 @@ class Trainer:
         # A densified checkpoint can need a larger pair capacity than the
         # seed audit chose.
         self._reaudit("resume")
+        if self.mesh is not None:
+            self._shard_state()
 
 
 def load_checkpoint_arrays(path: Path, device=None

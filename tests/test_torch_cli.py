@@ -404,7 +404,8 @@ def test_cli_trains_the_baselines_on_the_cpu(method, capture, tmp_path):
 
 
 def test_unported_commands_name_their_items(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue A item 14"):
+    # ported since: in one process, dp 2 names the launch it needs
+    with pytest.raises(ValueError, match="torchrun"):
         tcli.cmd_train(["dn-splatter", "my-format", "--data", str(tmp_path),
                         "--device", "cpu", "--train.dp", "2"])
 

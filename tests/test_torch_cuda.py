@@ -943,3 +943,71 @@ def test_baseline_step_card_matches_cpu(dev, method):
     assert cmp["loss_rel_err"] <= chip_smoke.BASELINE_LOSS_RTOL, cmp
     assert cmp["grad_rel_l2"] <= chip_smoke.BASELINE_GRAD_L2, cmp
     assert cmp["ts_max_err_bins"] <= chip_smoke.BASELINE_TS_BINS, cmp
+
+
+@pytest.mark.cuda
+def test_nccl_world_one_dp_step_matches_train_step(dev):
+    """`make_dp_train_step` at dp 1 under NCCL (a process group of one, its
+    collectives real NCCL calls) against the single-device `train_step` on
+    the same state and frame: the four step kernels launched alike; loss,
+    parameters and statistics within rtol 1e-5 / atol 1e-6 (expected
+    bit-equal: the mean over one rank is exact and the render the same)."""
+    import socket
+
+    from dnsplatter_torch.data.synthetic import make_synthetic_scene
+    from dnsplatter_torch.models.dn_model import ModelConfig
+    from dnsplatter_torch.models.gaussians import FIELDS, init_from_points
+    from dnsplatter_torch.parallel import collectives as C
+    from dnsplatter_torch.parallel import distributed as D
+    from dnsplatter_torch.train.optim import OptimConfig, init_adam
+    from dnsplatter_torch.train.strategy import init_stats
+    from dnsplatter_torch.train.trainer import train_step
+
+    scene = make_synthetic_scene(seed=0, n_gaussians=300, n_cameras=2,
+                                 width=96, height=64, device=dev)
+    rng = np.random.default_rng(0)
+    pts = rng.uniform(-1, 1, (300, 3)).astype(np.float32)
+    params, alive, _ = init_from_points(rng, pts, sh_degree=1, capacity=512,
+                                        device=dev)
+    mc = ModelConfig(use_depth_loss=True, depth_lambda=0.2, sh_degree=1,
+                     background_color="black")
+    rcfg = RasterizeConfig(width=96, height=64, chunk=32, tile_block=4,
+                           pair_capacity=1 << 14, backend="cuda",
+                           sort_scheme="depthq")
+    cam, batch = scene.get(1)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+    def fresh():
+        p = type(params)(**{f: getattr(params, f).clone() for f in FIELDS})
+        return p, alive.clone(), init_adam(p), init_stats(512, dev)
+
+    rc.LAUNCHES.clear()
+    want = train_step(mc, OptimConfig(), rcfg, 1, *fresh(), cam, batch, 0)
+    torch.cuda.synchronize()
+    single = dict(rc.LAUNCHES)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    D.shutdown_distributed()
+    try:
+        ctx = D.init_distributed(f"127.0.0.1:{port}", 1, 0)
+        assert ctx.backend == "nccl" and ctx.initialized
+        mesh = D.make_hybrid_mesh(dp=1)
+        fn = D.make_dp_train_step(mc, OptimConfig(), rcfg, 1, mesh)
+        C.LOG.clear()
+        rc.LAUNCHES.clear()
+        got = fn(*D.shard_state_hybrid(mesh, *fresh()), cam, batch, 0,
+                 frame_idx=[1])
+        torch.cuda.synchronize()
+        assert dict(rc.LAUNCHES) == single
+        assert C.LOG and {r["backend"] for r in C.LOG} == {"nccl"}
+    finally:
+        D.shutdown_distributed()
+    tol = dict(rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got[3], want[3], **tol)
+    for f in FIELDS:
+        torch.testing.assert_close(getattr(got[0], f), getattr(want[0], f),
+                                   msg=f, **tol)
+    for k in ("grad_sum", "vis_count", "max_2d"):
+        torch.testing.assert_close(getattr(got[2], k), getattr(want[2], k),
+                                   msg=k, **tol)

@@ -738,11 +738,16 @@ def test_unported_options_raise(scene):
                            train_cfg=ttr.TrainConfig(**train_kw),
                            device="cpu")
 
-    for model_kw, train_kw in (
-            ({}, dict(devices=2)), ({}, dict(distributed=True)),
-            ({}, dict(dp=2))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make(model_kw, train_kw)
+    # multi-device training runs one process a device: in one process,
+    # devices=2 and dp=2 name the launch they need, and distributed alone
+    # is the degenerate single process (as in the JAX package)
+    for train_kw in (dict(devices=2), dict(dp=2)):
+        with pytest.raises(ValueError, match="torchrun"):
+            make({}, train_kw)
+    assert make({}, dict(distributed=True)).mesh.shape == {"dp": 1,
+                                                           "gauss": 1}
+    with pytest.raises(ValueError, match="parallel_strategy"):
+        make({}, dict(parallel_strategy="pipeline"))
     # the TensorBoard writer (utils/writers.py) has landed: with an out_dir
     # it writes a tfevents file under out_dir/tb, without one nothing
     assert make({}, dict(tensorboard=True))._writers == []
