@@ -1,0 +1,11 @@
+"""The step's float32 operations (work.py) over the untraced window's
+time per step times the 67 TFLOP/s float32 peak, in %."""
+
+from harness import work as W
+
+
+def read(ctx):
+    if not ctx["work"]:
+        return None
+    ops = W.step_ops(ctx["work"], ctx["n_gauss"], ctx["pixels"])
+    return 100.0 * ops / (ctx["untraced_unit_s"] * W.FP32_OPS_PER_S)
