@@ -28,12 +28,18 @@ import torch
 import torch.nn.functional as F
 
 from dnsplatter_torch.models.losses import ssim as ssim_fn
+from dnsplatter_torch.utils import profiling
 
 
 def psnr(pred: torch.Tensor, gt: torch.Tensor,
          data_range: float = 1.0) -> torch.Tensor:
     mse = torch.mean((pred - gt) ** 2)
     return 10.0 * torch.log10(data_range ** 2 / torch.clamp_min(mse, 1e-12))
+
+
+def _read(x: torch.Tensor) -> float:
+    """A metric's value, read back (`sync.eval`)."""
+    return profiling.host_read("eval", float, x)
 
 
 def rgb_metrics(pred: torch.Tensor, gt: torch.Tensor,
@@ -43,10 +49,10 @@ def rgb_metrics(pred: torch.Tensor, gt: torch.Tensor,
     if lpips_fn is None:
         lpips_fn = default_lpips()
     return {
-        "psnr": float(psnr(pred, gt)),
-        "ssim": float(ssim_fn(pred, gt, kernel_size=11)),
-        "mse": float(torch.mean((pred - gt) ** 2)),
-        "lpips": float(lpips_fn(pred, gt)),
+        "psnr": _read(psnr(pred, gt)),
+        "ssim": _read(ssim_fn(pred, gt, kernel_size=11)),
+        "mse": _read(torch.mean((pred - gt) ** 2)),
+        "lpips": _read(lpips_fn(pred, gt)),
     }
 
 
@@ -67,14 +73,14 @@ def depth_metrics(pred: torch.Tensor, gt: torch.Tensor,
     thresh = torch.maximum(pred_c / gt_c, gt_c / pred_c)
     pred_log = torch.log(torch.clamp_min(pred_c, 1e-6))
     return {
-        "abs_rel": float(wmean(torch.abs(pred_c - gt_c) / gt_c)),
-        "sq_rel": float(wmean((pred_c - gt_c) ** 2 / gt_c)),
-        "rmse": float(torch.sqrt(wmean((pred_c - gt_c) ** 2))),
-        "rmse_log": float(torch.sqrt(wmean((pred_log - torch.log(gt_c))
+        "abs_rel": _read(wmean(torch.abs(pred_c - gt_c) / gt_c)),
+        "sq_rel": _read(wmean((pred_c - gt_c) ** 2 / gt_c)),
+        "rmse": _read(torch.sqrt(wmean((pred_c - gt_c) ** 2))),
+        "rmse_log": _read(torch.sqrt(wmean((pred_log - torch.log(gt_c))
                                            ** 2))),
-        "a1": float(wmean((thresh < 1.25).to(torch.float32))),
-        "a2": float(wmean((thresh < 1.25 ** 2).to(torch.float32))),
-        "a3": float(wmean((thresh < 1.25 ** 3).to(torch.float32))),
+        "a1": _read(wmean((thresh < 1.25).to(torch.float32))),
+        "a2": _read(wmean((thresh < 1.25 ** 2).to(torch.float32))),
+        "a3": _read(wmean((thresh < 1.25 ** 3).to(torch.float32))),
     }
 
 

@@ -28,6 +28,7 @@ from dnsplatter_torch.ops.camera import Camera
 from dnsplatter_torch.ops.normals import normal_from_depth_image
 from dnsplatter_torch.ops.rasterize import RasterizeConfig
 from dnsplatter_torch.ops.render import RenderInfo, RenderOutputs, render
+from dnsplatter_torch.utils import profiling
 
 # Viser's default background colour, used by splatfacto at eval when
 # background_color == "random".
@@ -122,8 +123,9 @@ def outputs_dict(out: RenderOutputs) -> Dict[str, torch.Tensor]:
     # rsqrt(|n|^2 + eps), not a norm: empty pixels composite a zero normal,
     # where a norm's gradient is undefined and would reach whole tiles
     # through the backward sums.
-    n = out.normal
-    n = n * torch.rsqrt(torch.sum(n * n, dim=-1, keepdim=True) + 1e-12)
+    with profiling.span("render.finish"):
+        n = out.normal
+        n = n * torch.rsqrt(torch.sum(n * n, dim=-1, keepdim=True) + 1e-12)
     return {
         "rgb": out.rgb,
         "depth": out.depth,
@@ -150,14 +152,16 @@ def get_outputs(
 ) -> Tuple[Dict[str, torch.Tensor], RenderInfo]:
     """The reference `get_outputs` dict. Without a `background`: see
     `pick_background`."""
-    if background is None:
-        background = pick_background(cfg, training, generator,
-                                     params.means.device)
-    out, info = render(params, alive, camera, raster_cfg,
-                       sh_degree_to_use=sh_degree, background=background,
-                       rasterize_mode=cfg.rasterize_mode, xys_sink=xys_sink,
-                       absgrad_sink=absgrad_sink, crop_box=crop_box)
-    return outputs_dict(out), info
+    with profiling.span("model.outputs"):
+        if background is None:
+            background = pick_background(cfg, training, generator,
+                                         params.means.device)
+        out, info = render(params, alive, camera, raster_cfg,
+                           sh_degree_to_use=sh_degree, background=background,
+                           rasterize_mode=cfg.rasterize_mode,
+                           xys_sink=xys_sink, absgrad_sink=absgrad_sink,
+                           crop_box=crop_box)
+        return outputs_dict(out), info
 
 
 def compute_loss(

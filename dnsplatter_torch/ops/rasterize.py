@@ -53,6 +53,7 @@ from typing import Optional, Tuple
 import torch
 
 from dnsplatter_torch.ops import rasterize_cuda as rc
+from dnsplatter_torch.utils import profiling
 
 INT32_MAX = 2**31 - 1
 UINT32_MAX = 2**32 - 1
@@ -304,253 +305,260 @@ def bin_gaussians(
     depth-sorted payload table with radii_x, radii_y, validf in columns
     13..15) skip the internal gathers. `conics` and `opacities` feed
     `exact_cull`; without them, or from F32_EXACT_LIMIT Gaussians or pair
-    slots on, culling is a no-op and the layout stays right.
+    slots on, culling is a no-op and the layout stays right. Counts the
+    call, its pairs listed and its capacity (`bin.*`).
     """
-    dev = means2d.device
-    n = means2d.shape[0]
-    c = cfg.pair_capacity
-    k = cfg.chunk
-    t_pad = cfg.n_tiles_padded
-    depthq = cfg.sort_scheme == "depthq"
-    valid = validf > 0.5
-    rad_u = radii if radii.ndim == 2 else torch.stack([radii, radii], -1)
+    with profiling.span("raster.bin"):
+        dev = means2d.device
+        n = means2d.shape[0]
+        c = cfg.pair_capacity
+        k = cfg.chunk
+        t_pad = cfg.n_tiles_padded
+        depthq = cfg.sort_scheme == "depthq"
+        valid = validf > 0.5
+        rad_u = radii if radii.ndim == 2 else torch.stack([radii, radii], -1)
 
-    if depthq:
-        qbits = 32 - max(int(t_pad + 1).bit_length(), 1)
-        if qbits < 14:
-            raise ValueError(f"depthq needs >= 14 depth bits, got {qbits} "
-                             f"at {t_pad} padded tiles; use "
-                             "sort_scheme='auto'")
-        if n >= F32_EXACT_LIMIT:
-            raise ValueError(f"depthq takes fewer than {F32_EXACT_LIMIT} "
-                             f"Gaussians, got {n}; use sort_scheme='auto'")
-        scheme = "depthq"
-        order = torch.arange(n, dtype=torch.int64, device=dev)
-        m2d_s = means2d
-        rad_s = rad_u
-        valid_s = valid
-    else:
-        scheme, key_bias = _resolve_scheme(cfg, n)
-        if order is None:
-            order = torch.argsort(torch.where(valid, depths, torch.inf),
-                                  stable=True)
-        if fields_sorted is not None:
-            m2d_s = fields_sorted[:, 0:2]
-            rad_s = fields_sorted[:, 13:15]
-            valid_s = fields_sorted[:, 15] > 0.5
-        else:
-            m2d_s = means2d[order]
-            rad_s = rad_u[order]
-            valid_s = valid[order]
-
-    x0, x1, y0, y1 = _tile_bbox(cfg, m2d_s, rad_s)
-    w = (x1 - x0).clamp_min(0)
-    h = (y1 - y0).clamp_min(0)
-    counts_g = torch.where(valid_s, w.long() * h.long(), 0)
-    offs_raw = torch.cumsum(counts_g, 0) - counts_g
-    total_raw = counts_g.sum()
-    # Overflow drops whole Gaussians, so the histogram below stays exactly
-    # consistent with the emitted pairs.
-    counts_g = torch.where(offs_raw + counts_g <= c, counts_g, 0)
-    offsets = torch.cumsum(counts_g, 0) - counts_g
-    total = counts_g.sum()
-
-    # Per-tile pair counts without expansion, exactly, in integers: +1/-1
-    # at the four corners of each kept rectangle, then a 2D prefix sum.
-    keep = (counts_g > 0).long()
-    gx = cfg.tiles_x + 1
-    corner_idx = torch.cat([y0 * gx + x0, y0 * gx + x1, y1 * gx + x0,
-                            y1 * gx + x1]).long()
-    corner_val = torch.cat([keep, -keep, -keep, keep])
-    grid = torch.zeros((cfg.tiles_y + 1) * gx, dtype=torch.int64,
-                       device=dev)
-    grid.index_add_(0, corner_idx, corner_val)
-    counts2d = grid.reshape(cfg.tiles_y + 1, gx).cumsum(0).cumsum(1)
-    tile_counts = counts2d[:cfg.tiles_y, :cfg.tiles_x].reshape(-1)
-    tile_counts = torch.cat([
-        tile_counts,
-        torch.zeros(t_pad - cfg.n_tiles, dtype=torch.int64, device=dev)])
-    starts = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
-                        torch.cumsum(tile_counts, 0)])
-
-    # Per-pair fields [gauss, offset, packed bbox, row 4] as
-    # piecewise-constant runs over the pair axis. Row 4 is the original id
-    # under the exact schemes; under depthq row 0 is already the original
-    # id and row 4 carries the quantized depth.
-    pos = torch.arange(c, dtype=torch.int64, device=dev)
-    live = pos < total
-    pack_xyw = cfg.tiles_x < 128 and cfg.tiles_y < 128
-    gid = torch.arange(n, dtype=torch.int32, device=dev)
-    if depthq:
-        qmax = (1 << qbits) - 1
-        dmin = torch.where(valid, depths, torch.inf).amin()
-        dmax = torch.where(valid, depths, -torch.inf).amax()
-        dmin = torch.where(torch.isfinite(dmin), dmin, 0.0)
-        dmax = torch.where(torch.isfinite(dmax), dmax, 0.0)
-        span = torch.clamp_min(dmax - dmin, 1e-12)
-        qdf = torch.clamp(torch.round((depths - dmin) / span * (qmax - 1)),
-                          0.0, float(qmax - 1))
-        # Clamped once more as an integer: above 24 depth bits (fewer than
-        # 255 padded tiles) float32 rounds qmax - 1 up to 2^qbits, and the
-        # deepest Gaussian's key would carry into the next tile's range
-        # (the JAX package files it there; see ROADMAP.md section C).
-        row4 = torch.nan_to_num(torch.where(valid, qdf, 0.0)).to(
-            torch.int32).clamp_max(qmax - 1)
-    else:
-        row4 = order.int()
-    if pack_xyw:
-        xyw = (x0 * 128 + y0) * 256 + w.clamp_min(1)
-        vals = torch.stack([gid, offsets.int(), xyw, row4])
-    else:
-        vals = torch.stack([gid, offsets.int(), w.clamp_min(1),
-                            x0 * 4096 + y0, row4])
-    nv = vals.shape[0]
-    gauss_starts = torch.cat([offsets, total[None]]).to(torch.int32)
-    expand = n < F32_EXACT_LIMIT
-    cull = (cfg.exact_cull and expand and c < F32_EXACT_LIMIT
-            and conics is not None and opacities is not None)
-    if cull:
-        # One combined float32 expansion: the integer rows (below 2^24
-        # here, so exact in float32) and six geometry rows for the test.
         if depthq:
-            con_s = conics
-            op_s = torch.where(valid, opacities, 0.0)
-        elif fields_sorted is not None:
-            con_s = fields_sorted[:, 2:5]
-            op_s = fields_sorted[:, 5]  # already masked by validity
+            qbits = 32 - max(int(t_pad + 1).bit_length(), 1)
+            if qbits < 14:
+                raise ValueError(f"depthq needs >= 14 depth bits, got {qbits} "
+                                 f"at {t_pad} padded tiles; use "
+                                 "sort_scheme='auto'")
+            if n >= F32_EXACT_LIMIT:
+                raise ValueError(f"depthq takes fewer than {F32_EXACT_LIMIT} "
+                                 f"Gaussians, got {n}; use sort_scheme='auto'")
+            scheme = "depthq"
+            order = torch.arange(n, dtype=torch.int64, device=dev)
+            m2d_s = means2d
+            rad_s = rad_u
+            valid_s = valid
         else:
-            con_s = conics[order]
-            op_s = torch.where(valid_s, opacities[order], 0.0)
-        thr = torch.log(op_s.clamp_min(1e-12) * 255.0)
-        allvals = torch.cat([
-            vals.float(),
-            torch.stack([m2d_s[:, 0], m2d_s[:, 1], con_s[:, 0], con_s[:, 1],
-                         con_s[:, 2], thr])])
-        accf = rc.expand_segments(allvals, gauss_starts, c,
-                                  out_dtype=torch.float32)
-        acc = accf[:nv].long()
-        pair_flds = accf[nv:]
-    elif expand:
-        acc = rc.expand_segments(vals, gauss_starts, c).long()
-    else:
-        # Above the expansion's ceiling (JAX rasterize.py:522-533): the
-        # differences between neighbouring Gaussians' rows, scattered at
-        # each Gaussian's first pair slot, then a prefix sum along the pair
-        # axis. Gaussians without pairs share a slot with their successor
-        # (or, past the last pair, with each other), so the scatter adds;
-        # slots at or past the capacity are dropped.
-        diffs = torch.cat([vals[:, :1], vals[:, 1:] - vals[:, :-1]], dim=1)
-        inside = offsets < c
-        table = torch.zeros((nv, c), dtype=torch.int32, device=dev)
-        table.index_add_(1, offsets[inside], diffs[:, inside])
-        acc = rc.cumsum_lanes_i32(table).long()
-    pair_gauss0 = acc[0]
-    rank = pos - acc[1]
-    if pack_xyw:
-        wg = (acc[2] % 256).clamp_min(1)
-        x0p = acc[2] // 32768
-        y0p = (acc[2] // 256) % 128
-        row4_pair = acc[3]
-    else:
-        wg = acc[2].clamp_min(1)
-        x0p = acc[3] // 4096
-        y0p = acc[3] % 4096
-        row4_pair = acc[4]
-    orig0 = pair_gauss0 if depthq else row4_pair
-    tile_id = x0p + rank % wg + (y0p + rank // wg) * cfg.tiles_x
-    tile_id = tile_id.clamp(0, t_pad)
-    ov = torch.where(live, orig0, n)
-    if cull:
-        culled = live & ~_pairs_survive(cfg, tile_id, pair_flds)
+            scheme, key_bias = _resolve_scheme(cfg, n)
+            if order is None:
+                order = torch.argsort(torch.where(valid, depths, torch.inf),
+                                      stable=True)
+            if fields_sorted is not None:
+                m2d_s = fields_sorted[:, 0:2]
+                rad_s = fields_sorted[:, 13:15]
+                valid_s = fields_sorted[:, 15] > 0.5
+            else:
+                m2d_s = means2d[order]
+                rad_s = rad_u[order]
+                valid_s = valid[order]
 
-    # One sort on the key, as int32 (the bias shifts a uint32 range down,
-    # keeping the order), so the radix sort makes the passes of a 32-bit
-    # key. A culled pair keeps its slot inside its tile's range (the
-    # histogram counted the full rectangles) but takes the largest key of
-    # its tile: it sorts to the range's tail, and the first such key per
-    # tile, found by binary search, is the tile's shrunken count. Those
-    # keys tie, so with culling every sort is stable.
-    tiles = torch.arange(t_pad, dtype=torch.int64, device=dev)
-    if depthq:
-        # key = tile * 2^qb + quantized depth (uint32); the id rides as
-        # payload. Dead lanes take qmax, above any real depth, and land
-        # past the last tile. Equal keys (one tile, one quantized depth)
-        # keep their pre-sort order, ascending id: the sort is stable, so
-        # the layout is the same from run to run.
-        bigq = qmax + 1
-        sentinel = t_pad * bigq + qmax
-        key = torch.where(live, tile_id * bigq + row4_pair, sentinel)
-        if cull:
-            key = torch.where(culled, tile_id * bigq + qmax, key)
-        keys, perm = torch.sort((key - 2**31).to(torch.int32), stable=True)
-        pair_gauss = ov[perm]
-        pair_orig = pair_gauss
-        bounds = tiles * bigq + qmax - 2**31
-    elif scheme == "tilekey":
-        # A stable sort on tile * 2 + cullbit alone. Before the sort the
-        # pairs of one tile already ascend in Gaussian (= depth) order, so
-        # stability gives exactly the packed layout, and the index rides
-        # as payload instead of being decoded from the key: any N.
-        key = torch.where(live, tile_id * 2, 2 * t_pad + 2)
-        gv = torch.where(live, pair_gauss0, n)
-        if cull:
-            key = torch.where(culled, tile_id * 2 + 1, key)
-            gv = torch.where(culled, n, gv)
-        keys, perm = torch.sort(key.to(torch.int32), stable=True)
-        pair_gauss = gv[perm]
-        pair_orig = ov[perm]
-        bounds = tiles * 2 + 1
-    else:
-        # tile * (N + 1) + gauss: unique over live, unculled pairs; a
-        # culled pair takes its tile's own sentinel index N, which decodes
-        # to the payload table's zero row.
-        big = n + 1
-        sentinel = t_pad * big + n
-        key = torch.where(live, tile_id * big + pair_gauss0, sentinel)
-        if cull:
-            key = torch.where(culled, tile_id * big + n, key)
-        keys, perm = torch.sort((key - key_bias).to(torch.int32),
-                                stable=cull)
-        pair_orig = ov[perm]
-        pair_gauss = (keys.long() + key_bias) % big
-        bounds = tiles * big + n - key_bias
-    if cull:
-        surv_end = torch.searchsorted(keys, bounds.to(torch.int32))
-        tile_counts = surv_end - starts[:-1]
-    tail = torch.full((k,), n, dtype=torch.int64, device=dev)
-    pair_gauss = torch.cat([pair_gauss, tail]).to(torch.int32)
-    pair_orig = (pair_gauss if depthq
-                 else torch.cat([pair_orig, tail]).to(torch.int32))
+        x0, x1, y0, y1 = _tile_bbox(cfg, m2d_s, rad_s)
+        w = (x1 - x0).clamp_min(0)
+        h = (y1 - y0).clamp_min(0)
+        counts_g = torch.where(valid_s, w.long() * h.long(), 0)
+        offs_raw = torch.cumsum(counts_g, 0) - counts_g
+        total_raw = counts_g.sum()
+        # Overflow drops whole Gaussians, so the histogram below stays exactly
+        # consistent with the emitted pairs.
+        counts_g = torch.where(offs_raw + counts_g <= c, counts_g, 0)
+        offsets = torch.cumsum(counts_g, 0) - counts_g
+        total = counts_g.sum()
 
-    orig_starts = piece_bounds = piece_starts = None
-    if cfg.boundary_reduce:
-        # Per-original-id pair counts: counts_g back in parameter order
-        # (`order` is a permutation, so the scatter has no collisions).
-        # The JAX package recomputes them from the unsorted rectangles
-        # while nothing overflowed; the capacity drop follows the
-        # depth-sorted prefix, so under overflow only this form is right,
-        # and without overflow the two agree.
-        counts_orig = (counts_g if depthq
-                       else torch.zeros_like(counts_g).scatter_(
-                           0, order.long(), counts_g))
-        orig_starts = torch.cat([
-            torch.zeros(1, dtype=torch.int64, device=dev),
-            torch.cumsum(counts_orig, 0)]).to(torch.int32)
-        if cfg.n_reduce_pieces > 1:
-            piece_bounds, piece_starts = _piece_structure(
-                cfg, starts, counts_orig, _tile_bbox(cfg, means2d, rad_u))
-    return _Binned(
-        order=order,
-        pair_gauss=pair_gauss,
-        pair_orig=pair_orig,
-        starts=starts.to(torch.int32),
-        counts=tile_counts.to(torch.int32),
-        gauss_starts=gauss_starts,
-        total_pairs=total_raw.to(torch.int32),
-        orig_starts=orig_starts,
-        piece_bounds=piece_bounds,
-        piece_starts=piece_starts,
-    )
+        # Per-tile pair counts without expansion, exactly, in integers: +1/-1
+        # at the four corners of each kept rectangle, then a 2D prefix sum.
+        keep = (counts_g > 0).long()
+        gx = cfg.tiles_x + 1
+        corner_idx = torch.cat([y0 * gx + x0, y0 * gx + x1, y1 * gx + x0,
+                                y1 * gx + x1]).long()
+        corner_val = torch.cat([keep, -keep, -keep, keep])
+        grid = torch.zeros((cfg.tiles_y + 1) * gx, dtype=torch.int64,
+                           device=dev)
+        grid.index_add_(0, corner_idx, corner_val)
+        counts2d = grid.reshape(cfg.tiles_y + 1, gx).cumsum(0).cumsum(1)
+        tile_counts = counts2d[:cfg.tiles_y, :cfg.tiles_x].reshape(-1)
+        tile_counts = torch.cat([
+            tile_counts,
+            torch.zeros(t_pad - cfg.n_tiles, dtype=torch.int64, device=dev)])
+        starts = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                            torch.cumsum(tile_counts, 0)])
+
+        # Per-pair fields [gauss, offset, packed bbox, row 4] as
+        # piecewise-constant runs over the pair axis. Row 4 is the original id
+        # under the exact schemes; under depthq row 0 is already the original
+        # id and row 4 carries the quantized depth.
+        pos = torch.arange(c, dtype=torch.int64, device=dev)
+        live = pos < total
+        pack_xyw = cfg.tiles_x < 128 and cfg.tiles_y < 128
+        gid = torch.arange(n, dtype=torch.int32, device=dev)
+        if depthq:
+            qmax = (1 << qbits) - 1
+            dmin = torch.where(valid, depths, torch.inf).amin()
+            dmax = torch.where(valid, depths, -torch.inf).amax()
+            dmin = torch.where(torch.isfinite(dmin), dmin, 0.0)
+            dmax = torch.where(torch.isfinite(dmax), dmax, 0.0)
+            span = torch.clamp_min(dmax - dmin, 1e-12)
+            qdf = torch.clamp(torch.round((depths - dmin) / span * (qmax - 1)),
+                              0.0, float(qmax - 1))
+            # Clamped once more as an integer: above 24 depth bits (fewer than
+            # 255 padded tiles) float32 rounds qmax - 1 up to 2^qbits, and the
+            # deepest Gaussian's key would carry into the next tile's range
+            # (the JAX package files it there; see ROADMAP.md section C).
+            row4 = torch.nan_to_num(torch.where(valid, qdf, 0.0)).to(
+                torch.int32).clamp_max(qmax - 1)
+        else:
+            row4 = order.int()
+        if pack_xyw:
+            xyw = (x0 * 128 + y0) * 256 + w.clamp_min(1)
+            vals = torch.stack([gid, offsets.int(), xyw, row4])
+        else:
+            vals = torch.stack([gid, offsets.int(), w.clamp_min(1),
+                                x0 * 4096 + y0, row4])
+        nv = vals.shape[0]
+        gauss_starts = torch.cat([offsets, total[None]]).to(torch.int32)
+        expand = n < F32_EXACT_LIMIT
+        cull = (cfg.exact_cull and expand and c < F32_EXACT_LIMIT
+                and conics is not None and opacities is not None)
+        if cull:
+            # One combined float32 expansion: the integer rows (below 2^24
+            # here, so exact in float32) and six geometry rows for the test.
+            if depthq:
+                con_s = conics
+                op_s = torch.where(valid, opacities, 0.0)
+            elif fields_sorted is not None:
+                con_s = fields_sorted[:, 2:5]
+                op_s = fields_sorted[:, 5]  # already masked by validity
+            else:
+                con_s = conics[order]
+                op_s = torch.where(valid_s, opacities[order], 0.0)
+            thr = torch.log(op_s.clamp_min(1e-12) * 255.0)
+            allvals = torch.cat([
+                vals.float(),
+                torch.stack([m2d_s[:, 0], m2d_s[:, 1], con_s[:, 0],
+                             con_s[:, 1], con_s[:, 2], thr])])
+            accf = rc.expand_segments(allvals, gauss_starts, c,
+                                      out_dtype=torch.float32)
+            acc = accf[:nv].long()
+            pair_flds = accf[nv:]
+        elif expand:
+            acc = rc.expand_segments(vals, gauss_starts, c).long()
+        else:
+            # Above the expansion's ceiling (JAX rasterize.py:522-533): the
+            # differences between neighbouring Gaussians' rows, scattered at
+            # each Gaussian's first pair slot, then a prefix sum along the pair
+            # axis. Gaussians without pairs share a slot with their successor
+            # (or, past the last pair, with each other), so the scatter adds;
+            # slots at or past the capacity are dropped.
+            diffs = torch.cat([vals[:, :1], vals[:, 1:] - vals[:, :-1]], dim=1)
+            inside = profiling.host_read("bin_scatter", torch.nonzero,
+                                         offsets < c)[:, 0]
+            table = torch.zeros((nv, c), dtype=torch.int32, device=dev)
+            table.index_add_(1, offsets[inside], diffs[:, inside])
+            acc = rc.cumsum_lanes_i32(table).long()
+        pair_gauss0 = acc[0]
+        rank = pos - acc[1]
+        if pack_xyw:
+            wg = (acc[2] % 256).clamp_min(1)
+            x0p = acc[2] // 32768
+            y0p = (acc[2] // 256) % 128
+            row4_pair = acc[3]
+        else:
+            wg = acc[2].clamp_min(1)
+            x0p = acc[3] // 4096
+            y0p = acc[3] % 4096
+            row4_pair = acc[4]
+        orig0 = pair_gauss0 if depthq else row4_pair
+        tile_id = x0p + rank % wg + (y0p + rank // wg) * cfg.tiles_x
+        tile_id = tile_id.clamp(0, t_pad)
+        ov = torch.where(live, orig0, n)
+        if cull:
+            culled = live & ~_pairs_survive(cfg, tile_id, pair_flds)
+
+        # One sort on the key, as int32 (the bias shifts a uint32 range down,
+        # keeping the order), so the radix sort makes the passes of a 32-bit
+        # key. A culled pair keeps its slot inside its tile's range (the
+        # histogram counted the full rectangles) but takes the largest key of
+        # its tile: it sorts to the range's tail, and the first such key per
+        # tile, found by binary search, is the tile's shrunken count. Those
+        # keys tie, so with culling every sort is stable.
+        tiles = torch.arange(t_pad, dtype=torch.int64, device=dev)
+        if depthq:
+            # key = tile * 2^qb + quantized depth (uint32); the id rides as
+            # payload. Dead lanes take qmax, above any real depth, and land
+            # past the last tile. Equal keys (one tile, one quantized depth)
+            # keep their pre-sort order, ascending id: the sort is stable, so
+            # the layout is the same from run to run.
+            bigq = qmax + 1
+            sentinel = t_pad * bigq + qmax
+            key = torch.where(live, tile_id * bigq + row4_pair, sentinel)
+            if cull:
+                key = torch.where(culled, tile_id * bigq + qmax, key)
+            keys, perm = torch.sort((key - 2**31).to(torch.int32), stable=True)
+            pair_gauss = ov[perm]
+            pair_orig = pair_gauss
+            bounds = tiles * bigq + qmax - 2**31
+        elif scheme == "tilekey":
+            # A stable sort on tile * 2 + cullbit alone. Before the sort the
+            # pairs of one tile already ascend in Gaussian (= depth) order, so
+            # stability gives exactly the packed layout, and the index rides
+            # as payload instead of being decoded from the key: any N.
+            key = torch.where(live, tile_id * 2, 2 * t_pad + 2)
+            gv = torch.where(live, pair_gauss0, n)
+            if cull:
+                key = torch.where(culled, tile_id * 2 + 1, key)
+                gv = torch.where(culled, n, gv)
+            keys, perm = torch.sort(key.to(torch.int32), stable=True)
+            pair_gauss = gv[perm]
+            pair_orig = ov[perm]
+            bounds = tiles * 2 + 1
+        else:
+            # tile * (N + 1) + gauss: unique over live, unculled pairs; a
+            # culled pair takes its tile's own sentinel index N, which decodes
+            # to the payload table's zero row.
+            big = n + 1
+            sentinel = t_pad * big + n
+            key = torch.where(live, tile_id * big + pair_gauss0, sentinel)
+            if cull:
+                key = torch.where(culled, tile_id * big + n, key)
+            keys, perm = torch.sort((key - key_bias).to(torch.int32),
+                                    stable=cull)
+            pair_orig = ov[perm]
+            pair_gauss = (keys.long() + key_bias) % big
+            bounds = tiles * big + n - key_bias
+        if cull:
+            surv_end = torch.searchsorted(keys, bounds.to(torch.int32))
+            tile_counts = surv_end - starts[:-1]
+        tail = torch.full((k,), n, dtype=torch.int64, device=dev)
+        pair_gauss = torch.cat([pair_gauss, tail]).to(torch.int32)
+        pair_orig = (pair_gauss if depthq
+                     else torch.cat([pair_orig, tail]).to(torch.int32))
+
+        orig_starts = piece_bounds = piece_starts = None
+        if cfg.boundary_reduce:
+            # Per-original-id pair counts: counts_g back in parameter order
+            # (`order` is a permutation, so the scatter has no collisions).
+            # The JAX package recomputes them from the unsorted rectangles
+            # while nothing overflowed; the capacity drop follows the
+            # depth-sorted prefix, so under overflow only this form is right,
+            # and without overflow the two agree.
+            counts_orig = (counts_g if depthq
+                           else torch.zeros_like(counts_g).scatter_(
+                               0, order.long(), counts_g))
+            orig_starts = torch.cat([
+                torch.zeros(1, dtype=torch.int64, device=dev),
+                torch.cumsum(counts_orig, 0)]).to(torch.int32)
+            if cfg.n_reduce_pieces > 1:
+                piece_bounds, piece_starts = _piece_structure(
+                    cfg, starts, counts_orig, _tile_bbox(cfg, means2d, rad_u))
+        binned = _Binned(
+            order=order,
+            pair_gauss=pair_gauss,
+            pair_orig=pair_orig,
+            starts=starts.to(torch.int32),
+            counts=tile_counts.to(torch.int32),
+            gauss_starts=gauss_starts,
+            total_pairs=total_raw.to(torch.int32),
+            orig_starts=orig_starts,
+            piece_bounds=piece_bounds,
+            piece_starts=piece_starts,
+        )
+    profiling.count("bin.calls")
+    profiling.count("bin.pairs_listed", binned.total_pairs)
+    profiling.count("bin.pair_capacity", cfg.pair_capacity)
+    return binned
 
 
 def _tiles_to_image(cfg: RasterizeConfig, tiles: torch.Tensor
@@ -620,15 +628,19 @@ def _raster_fwd(cfg: RasterizeConfig, means2d, conics, opacities, features,
 
     pw = 6 + f
     pw_pad = -(-pw // 8) * 8
-    table = torch.cat([fields_s[:, :pw], torch.zeros((1, pw), device=dev)])
-    rows = table[binned.pair_gauss.long()]  # (C + K, 6 + F)
-    payload = torch.zeros((pw_pad, rows.shape[0]), device=dev)
-    payload[:pw] = rows.T
-    out_t, tfin_t, last_t = rc.forward_tiles(
-        payload, binned.starts, binned.counts, cfg.n_tiles_padded, f,
-        cfg.tile_size, cfg.tiles_x, cfg.chunk)
-    image = _tiles_to_image(cfg, out_t.permute(0, 2, 1))
-    alpha = _tiles_to_image(cfg, (1.0 - tfin_t).permute(0, 2, 1))
+    with profiling.span("raster.payload"):
+        table = torch.cat([fields_s[:, :pw],
+                           torch.zeros((1, pw), device=dev)])
+        rows = table[binned.pair_gauss.long()]  # (C + K, 6 + F)
+        payload = torch.zeros((pw_pad, rows.shape[0]), device=dev)
+        payload[:pw] = rows.T
+    with profiling.span("raster.tiles"):
+        out_t, tfin_t, last_t = rc.forward_tiles(
+            payload, binned.starts, binned.counts, cfg.n_tiles_padded, f,
+            cfg.tile_size, cfg.tiles_x, cfg.chunk)
+    with profiling.span("render.finish"):
+        image = _tiles_to_image(cfg, out_t.permute(0, 2, 1))
+        alpha = _tiles_to_image(cfg, (1.0 - tfin_t).permute(0, 2, 1))
     return (image, alpha), (binned, payload, tfin_t, last_t)
 
 
@@ -637,19 +649,21 @@ def live_pair_slots(cfg: RasterizeConfig, binned: _Binned,
     """Indices of the pair slots at or before their tile's deepest
     contributor, ascending. Every other slot holds an exact-zero gradient
     (`backward_tiles` never writes it). The length follows the data, so
-    this reads one count back from the device."""
-    t_pad = cfg.n_tiles_padded
-    p = cfg.tile_size * cfg.tile_size
-    ml = last_t.reshape(t_pad, p).amax(dim=1).long()
-    counts = binned.counts.long()
-    lc = torch.minimum(ml + 1, counts)
-    s = binned.starts[:-1].long()
-    has = (lc > 0).long()
-    mark = torch.zeros(cfg.pair_buffer + 1, dtype=torch.int64,
-                       device=last_t.device)
-    mark.index_add_(0, s, has)
-    mark.index_add_(0, s + lc, -has)
-    return torch.nonzero(torch.cumsum(mark[:-1], 0) > 0)[:, 0]
+    this reads one count back from the device (`sync.live_slots`)."""
+    with profiling.span("raster.live_slots"):
+        t_pad = cfg.n_tiles_padded
+        p = cfg.tile_size * cfg.tile_size
+        ml = last_t.reshape(t_pad, p).amax(dim=1).long()
+        counts = binned.counts.long()
+        lc = torch.minimum(ml + 1, counts)
+        s = binned.starts[:-1].long()
+        has = (lc > 0).long()
+        mark = torch.zeros(cfg.pair_buffer + 1, dtype=torch.int64,
+                           device=last_t.device)
+        mark.index_add_(0, s, has)
+        mark.index_add_(0, s + lc, -has)
+        return profiling.host_read("live_slots", torch.nonzero,
+                                   torch.cumsum(mark[:-1], 0) > 0)[:, 0]
 
 
 def _reduce_bykey(cfg: RasterizeConfig, binned: _Binned, slab, last_t,
@@ -661,6 +675,7 @@ def _reduce_bykey(cfg: RasterizeConfig, binned: _Binned, slab, last_t,
     vals = slab[:ru]
     if cfg.compact_frac < 1.0:
         slots = live_pair_slots(cfg, binned, last_t)
+        profiling.count("bwd.live_slots", slots.shape[0])
         keys = keys[slots]
         vals = vals[:, slots]
     # int32 keys: a 32-bit radix sort, stable so that each id's lanes keep
@@ -687,7 +702,7 @@ def _reduce_pieces(cfg: RasterizeConfig, binned: _Binned, slab, ru: int,
     device (KP + 1 integers); nothing is padded to a static capacity, so no
     piece can overflow."""
     kp = cfg.n_reduce_pieces
-    pb = binned.piece_bounds.tolist()
+    pb = profiling.host_read("piece_bounds", binned.piece_bounds.tolist)
     cp = max(max(pb[j + 1] - pb[j] for j in range(kp)), 1)
     packed = torch.zeros((kp, ru, cp), dtype=torch.int32,
                          device=slab.device)
@@ -709,6 +724,7 @@ def _raster_bwd(cfg: RasterizeConfig, residuals, g_image, g_alpha, n: int):
     slots carry the sentinel id N and sort past every run. Returns
     (N, 8 + F): [dmx, dmy, da, db, dc, dop, df.., |dmx|, |dmy|]."""
     binned, payload, tfin_t, last_t = residuals
+    profiling.count("bwd.pairs_listed", binned.total_pairs)
     f = g_image.shape[-1]
     g_out_t = _image_to_tiles(cfg, g_image).permute(0, 2, 1).contiguous()
     g_alpha_t = _image_to_tiles(cfg, g_alpha).permute(0, 2, 1).contiguous()
@@ -718,24 +734,26 @@ def _raster_bwd(cfg: RasterizeConfig, residuals, g_image, g_alpha, n: int):
         last_t, cfg.n_tiles_padded, f, cfg.tile_size, cfg.tiles_x, cfg.chunk,
         pack_grads=pack)
     nlive = 6 + f
-    if not pack:
-        # Exact float32: the rows in use, sorted by id, runs bounded by
-        # orig_starts.
-        rows = torch.cat([slab[:nlive], slab[rc.GW - 2:rc.GW]])
-        _, perm = torch.sort(binned.pair_orig, stable=True)
-        return rc.reduce_segments(rows[:, perm], binned.orig_starts, n).T
-    ru = rc.packed_rows(f)
-    if cfg.n_reduce_pieces > 1:
-        per = _reduce_pieces(cfg, binned, slab, ru, n)
-    elif cfg.compact_frac <= 0.0:
-        # The boundary reduction (JAX `reduce_mono` :1454) over the whole
-        # slab.
-        _, perm = torch.sort(binned.pair_orig, stable=True)
-        per = rc.reduce_segments_packed(slab[:ru][:, perm],
-                                        binned.orig_starts, n)
-    else:
-        per = _reduce_bykey(cfg, binned, slab, last_t, ru, n)
-    return torch.cat([per[:nlive], per[2 * ru:2 * ru + 2]]).T
+    with profiling.span("raster.reduce"):
+        if not pack:
+            # Exact float32: the rows in use, sorted by id, runs bounded by
+            # orig_starts.
+            rows = torch.cat([slab[:nlive], slab[rc.GW - 2:rc.GW]])
+            _, perm = torch.sort(binned.pair_orig, stable=True)
+            return rc.reduce_segments(rows[:, perm], binned.orig_starts,
+                                      n).T
+        ru = rc.packed_rows(f)
+        if cfg.n_reduce_pieces > 1:
+            per = _reduce_pieces(cfg, binned, slab, ru, n)
+        elif cfg.compact_frac <= 0.0:
+            # The boundary reduction (JAX `reduce_mono` :1454) over the
+            # whole slab.
+            _, perm = torch.sort(binned.pair_orig, stable=True)
+            per = rc.reduce_segments_packed(slab[:ru][:, perm],
+                                            binned.orig_starts, n)
+        else:
+            per = _reduce_bykey(cfg, binned, slab, last_t, ru, n)
+        return torch.cat([per[:nlive], per[2 * ru:2 * ru + 2]]).T
 
 
 class _RasterizeFn(torch.autograd.Function):
@@ -759,7 +777,8 @@ class _RasterizeFn(torch.autograd.Function):
     def backward(ctx, g_image, g_alpha):
         cfg = ctx.cfg
         f = g_image.shape[-1]
-        out = _raster_bwd(cfg, ctx.residuals, g_image, g_alpha, ctx.n)
+        with profiling.span("raster.backward"):
+            out = _raster_bwd(cfg, ctx.residuals, g_image, g_alpha, ctx.n)
         return (None, out[:, 0:2], out[:, 2:5], out[:, 5], out[:, 6:6 + f],
                 out[:, 6 + f:8 + f], None, None, None)
 

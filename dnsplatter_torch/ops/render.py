@@ -24,6 +24,7 @@ from dnsplatter_torch.ops.normals import (
 from dnsplatter_torch.ops.projection import project_gaussians
 from dnsplatter_torch.ops.rasterize import RasterizeConfig, rasterize
 from dnsplatter_torch.ops.sh import eval_sh
+from dnsplatter_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,33 +73,38 @@ def screen_space(
 ) -> ScreenSpace:
     """Projection, SH colours and per-Gaussian normals: everything of
     `render` that is per Gaussian, so a sharded caller can run it on its own
-    rows."""
-    viewmat = camera.viewmat()
-    opac_raw = torch.sigmoid(params.opacities)
-    proj = project_gaussians(
-        params.means, params.quats, torch.exp(params.scales), viewmat,
-        camera.fx, camera.fy, camera.cx, camera.cy, camera.width,
-        camera.height, near_plane=near_plane, far_plane=far_plane,
-        opacities=opac_raw,
-    )
-    valid = proj.valid & (alive > 0.5)
-    if crop_box is not None:
-        lo, hi = crop_box
-        inside = torch.all(
-            (params.means >= lo[None]) & (params.means <= hi[None]), dim=-1)
-        valid = valid & inside
+    rows. Counts the rows computed and the visible ones (`project.*`)."""
+    with profiling.span("render.screen"):
+        viewmat = camera.viewmat()
+        opac_raw = torch.sigmoid(params.opacities)
+        proj = project_gaussians(
+            params.means, params.quats, torch.exp(params.scales), viewmat,
+            camera.fx, camera.fy, camera.cx, camera.cy, camera.width,
+            camera.height, near_plane=near_plane, far_plane=far_plane,
+            opacities=opac_raw,
+        )
+        valid = proj.valid & (alive > 0.5)
+        if crop_box is not None:
+            lo, hi = crop_box
+            inside = torch.all(
+                (params.means >= lo[None]) & (params.means <= hi[None]),
+                dim=-1)
+            valid = valid & inside
+        if profiling.enabled():
+            profiling.count("project.rows", valid.shape[0])
+            profiling.count("project.visible", valid.sum())
 
-    opac = opac_raw
-    if rasterize_mode == "antialiased":
-        opac = opac * proj.compensations
+        opac = opac_raw
+        if rasterize_mode == "antialiased":
+            opac = opac * proj.compensations
 
-    cam_pos = camera.position()
-    colors = eval_sh(sh_degree_to_use, params.sh_coeffs(),
-                     params.means - cam_pos[None, :])
-    n_world = per_gaussian_normals(params.scales, params.quats, params.means,
-                                   cam_pos)
-    n_cam = world_to_camera_normals(n_world, camera.c2w)
-    feats = torch.cat([colors, n_cam, proj.depths[:, None]], dim=-1)
+        cam_pos = camera.position()
+        colors = eval_sh(sh_degree_to_use, params.sh_coeffs(),
+                         params.means - cam_pos[None, :])
+        n_world = per_gaussian_normals(params.scales, params.quats,
+                                       params.means, cam_pos)
+        n_cam = world_to_camera_normals(n_world, camera.c2w)
+        feats = torch.cat([colors, n_cam, proj.depths[:, None]], dim=-1)
     return ScreenSpace(means2d=proj.means2d, conics=proj.conics,
                        depths=proj.depths, opacities=opac, features=feats,
                        valid=valid, radii_xy=proj.radii_xy, radii=proj.radii)
@@ -109,21 +115,23 @@ def finish(img: torch.Tensor, alpha: torch.Tensor, camera: Camera,
     """The image-space part of `render`: the background composite, the
     expected depth and the depth-gradient normals of a composited frame
     (H, W, 7) with its alpha."""
-    rgb = img[..., 0:3] + (1.0 - alpha) * background[None, None, :]
-    # clip as min(max(x, 0), 1): at a tie the gradient halves, as the JAX
-    # package's jnp.clip does (torch.clamp would pass it whole)
-    rgb = torch.minimum(torch.maximum(rgb, rgb.new_zeros(())),
-                        rgb.new_ones(()))
-    depth_acc = img[..., 6:7]
-    # Expected depth: accumulated / alpha where visible, the (detached)
-    # maximum elsewhere (splatfacto semantics).
-    max_depth = depth_acc.max().detach()
-    depth = torch.where(
-        alpha > 0.0,
-        depth_acc / torch.maximum(alpha, alpha.new_full((), 1e-10)),
-        max_depth)
-    surface_normal = surface_normal_output(depth.detach(), camera.fx,
-                                           camera.fy, camera.cx, camera.cy)
+    with profiling.span("render.finish"):
+        rgb = img[..., 0:3] + (1.0 - alpha) * background[None, None, :]
+        # clip as min(max(x, 0), 1): at a tie the gradient halves, as the
+        # JAX package's jnp.clip does (torch.clamp would pass it whole)
+        rgb = torch.minimum(torch.maximum(rgb, rgb.new_zeros(())),
+                            rgb.new_ones(()))
+        depth_acc = img[..., 6:7]
+        # Expected depth: accumulated / alpha where visible, the (detached)
+        # maximum elsewhere (splatfacto semantics).
+        max_depth = depth_acc.max().detach()
+        depth = torch.where(
+            alpha > 0.0,
+            depth_acc / torch.maximum(alpha, alpha.new_full((), 1e-10)),
+            max_depth)
+        surface_normal = surface_normal_output(depth.detach(), camera.fx,
+                                               camera.fy, camera.cx,
+                                               camera.cy)
     return RenderOutputs(rgb=rgb, depth=depth, normal=img[..., 3:6],
                          surface_normal=surface_normal, accumulation=alpha,
                          background=background)

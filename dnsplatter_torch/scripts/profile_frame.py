@@ -9,32 +9,36 @@ activity): `get_outputs` on the scene itself, or with `--train` steps of
 `Trainer.train` at the Trainer's defaults on seed points perturbed from
 the scene, against targets the port rendered (chip_smoke.py's training
 scene). Prints one JSON line: host ms per frame, device-busy ms per frame
-(the sum of kernel times), the device's idle share, and the kernels and
-operators that take the most device time; with `--train` also the device
-span of each stage of the step (from its first kernel's start to its
-last kernel's end, inclusive of the stages nested in it) and its host time.
-Runs only on the card.
+(the sum of kernel times), the device's idle share, the kernels and
+operators that take the most device time, and each stage the program's
+spans (`utils/profiling.SPANS`) mark: the device time of the kernels
+launched inside it (matched to their launch by the profiler's correlation
+id, on any thread, inclusive of the stages nested in it), its stream time
+and host time from the recorder, its parent, and the recorder's counters
+per frame. Runs only on the card.
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
 import contextlib
 import dataclasses
 import json
 import math
 import sys
 import time
-from unittest import mock
+from typing import Dict
 
 import numpy as np
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
 from dnsplatter_torch.data.synthetic import make_gt_gaussians, ring_cameras
 from dnsplatter_torch.eval.evaluator import eval_raster_config
 from dnsplatter_torch.models.dn_model import ModelConfig, get_outputs
+from dnsplatter_torch.utils import profiling
 
 
 def _device_us(evt) -> float:
@@ -45,34 +49,47 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-# Stages of a training step: (module path, attribute, label). Each is
-# wrapped in a profiler range, so its device time is that of the kernels
-# launched inside it.
-TRAIN_STAGES = (
-    ("dnsplatter_torch.train.trainer", "get_outputs", "1 get_outputs"),
-    ("dnsplatter_torch.ops.rasterize", "_raster_fwd", "1.1 raster_fwd"),
-    ("dnsplatter_torch.ops.rasterize", "bin_gaussians", "1.1.1 bin_gaussians"),
-    ("dnsplatter_torch.ops.rasterize_cuda", "forward_tiles",
-     "1.1.2 forward_tiles"),
-    ("dnsplatter_torch.train.trainer", "compute_loss", "2 compute_loss"),
-    ("torch.autograd", "grad", "3 autograd.grad"),
-    ("dnsplatter_torch.ops.rasterize", "_raster_bwd", "3.1 raster_bwd"),
-    ("dnsplatter_torch.ops.rasterize_cuda", "backward_tiles",
-     "3.1.1 backward_tiles"),
-    ("dnsplatter_torch.ops.rasterize", "live_pair_slots",
-     "3.1.2 live_pair_slots"),
-    ("dnsplatter_torch.ops.rasterize_cuda", "reduce_segments_bykey",
-     "3.1.3 reduce_segments_bykey"),
-    ("dnsplatter_torch.train.trainer", "adam_step", "4 adam_step"),
-    ("dnsplatter_torch.train.trainer", "update_stats", "5 update_stats"),
-)
+def _merged(ivs):
+    out = []
+    for a, b in sorted(ivs):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
 
 
-def _ranged(fn, label):
-    def wrapped(*a, **kw):
-        with record_function(label):
-            return fn(*a, **kw)
-    return wrapped
+def stage_device_us(events) -> Dict[str, float]:
+    """{span: device time (us) of the operations launched inside it}. A
+    device operation shares its correlation id with the runtime call (a
+    launch, copy or memset) that issued it; it belongs to a span when that
+    call started inside one of the span's host ranges, on any thread (the
+    autograd engine launches the backward from threads of its own, the
+    port's kernels are launched through ctypes)."""
+    ranges: Dict[str, list] = {}
+    launch_at, ops = {}, []
+    for e in events:
+        s, t = e.time_range.start, e.time_range.end
+        if e.device_type == DeviceType.CUDA:
+            if e.name not in profiling.SPANS:
+                ops.append((e.id, s, t - s))
+        elif e.name in profiling.SPANS:
+            ranges.setdefault(e.name, []).append((s, t))
+        elif (e.name.startswith(("cuda", "cu"))
+              and not e.name.startswith("cub")):
+            launch_at[e.id] = s
+    out = {}
+    for name, ivs in ranges.items():
+        ivs = _merged(ivs)
+        starts = [a for a, _ in ivs]
+        total = 0.0
+        for cid, s, d in ops:
+            at = launch_at.get(cid, s)
+            k = bisect.bisect_right(starts, at) - 1
+            if k >= 0 and at < ivs[k][1]:
+                total += d
+        out[name] = total
+    return out
 
 
 def _trainer(args, dev, gt, alive, cam_list, cfg):
@@ -127,16 +144,9 @@ def main(argv=None) -> None:
     cam = cams[0]
     cfg = eval_raster_config(1024, 576, capacity)
     bg = torch.zeros(3, device=dev)
-    stack = contextlib.ExitStack()
     if args.train:
-        import importlib
-
         trainer = _trainer(args, dev, params, alive, cams, cfg)
         capacity = trainer.train_cfg.pair_capacity
-        for mod, attr, label in TRAIN_STAGES:
-            m = importlib.import_module(mod)
-            stack.enter_context(mock.patch.object(
-                m, attr, _ranged(getattr(m, attr), label)))
 
         def frame():
             with contextlib.redirect_stdout(sys.stderr):
@@ -146,7 +156,7 @@ def main(argv=None) -> None:
             get_outputs(params, alive, cam, ModelConfig(), cfg, sh_degree=3,
                         background=bg)
 
-    with stack, torch.set_grad_enabled(args.train):
+    with torch.set_grad_enabled(args.train):
         for _ in range(4 if args.train else 3):
             frame()
         torch.cuda.synchronize()
@@ -155,6 +165,7 @@ def main(argv=None) -> None:
             frame()
         torch.cuda.synchronize()
         plain_wall_ms = (time.perf_counter() - t0) * 1e3 / args.frames
+        profiling.reset()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -163,15 +174,12 @@ def main(argv=None) -> None:
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / args.frames
 
-    labels = {label for _, _, label in TRAIN_STAGES}
+    rec = profiling.record()
     stats = [e for e in prof.key_averages() if _device_us(e) > 0]
-    # a stage's range is mirrored on the device's timeline as an
-    # annotation, from its first kernel's start to its last kernel's end
-    spans = [e for e in stats
-             if e.device_type == DeviceType.CUDA and e.key in labels]
-    kernels = [e for e in stats
-               if e.device_type == DeviceType.CUDA and e.key not in labels]
-    ops = [e for e in stats if e.device_type == DeviceType.CPU]
+    kernels = [e for e in stats if e.device_type == DeviceType.CUDA
+               and e.key not in profiling.SPANS]
+    ops = [e for e in stats if e.device_type == DeviceType.CPU
+           and e.key not in profiling.SPANS]
     busy_ms = sum(_device_us(e) for e in kernels) / 1e3 / args.frames
 
     def table(evts):
@@ -180,14 +188,19 @@ def main(argv=None) -> None:
                  "ms_per_frame": _device_us(e) / 1e3 / args.frames,
                  "calls_per_frame": e.count / args.frames} for e in evts]
 
-    stages = {e.key: {"device_span_ms_per_frame":
-                      _device_us(e) / 1e3 / args.frames} for e in spans}
-    for e in prof.key_averages():
-        if e.key in stages and e.device_type == DeviceType.CPU:
-            stages[e.key]["host_ms_per_frame"] = (
-                float(e.cpu_time_total) / 1e3 / args.frames)
+    device_us = stage_device_us(prof.events())
+    per = 1.0 / args.frames
+    stages = {name: {
+        "parent": s["parent"], "n_per_frame": s["n"] * per,
+        "device_ms_per_frame": device_us.get(name, 0.0) / 1e3 * per,
+        "stream_ms_per_frame": (None if s["stream_ms"] is None
+                                else s["stream_ms"] * per),
+        "host_ms_per_frame": s["host_ms"] * per}
+        for name, s in rec["spans"].items()}
+    counters = {k: v * per for k, v in rec["counters"].items()}
     print(json.dumps({
         "mode": "train" if args.train else "serve", "stages": stages,
+        "counters_per_frame": counters,
         "n_gaussians": args.n, "pair_capacity": capacity,
         "frames": args.frames, "host_ms_per_frame": plain_wall_ms,
         "host_ms_per_frame_profiled": wall_ms,

@@ -37,6 +37,7 @@ from dnsplatter_torch.train.optim import (
     zero_moments_at,
     zero_moments_field,
 )
+from dnsplatter_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,15 +90,19 @@ def _free_slots(alive: torch.Tensor) -> torch.Tensor:
 
 
 def _write_rows(params: GaussianParams, slots: torch.Tensor,
-                rows: GaussianParams, ok: torch.Tensor) -> GaussianParams:
-    """`rows[ok]` stored at `slots[ok]`, field by field (a new tensor)."""
-    tgt = slots[ok]
+                rows: GaussianParams, ok: torch.Tensor
+                ) -> Tuple[GaussianParams, torch.Tensor]:
+    """`rows[ok]` stored at `slots[ok]`, field by field (new tensors),
+    and the slots written. Which rows are written is read back once
+    (`sync.refine_rows`)."""
+    sel = profiling.host_read("refine_rows", torch.nonzero, ok)[:, 0]
+    tgt = slots[sel]
     out = {}
     for f in FIELDS:
         dst = getattr(params, f).clone()
-        dst[tgt] = getattr(rows, f)[ok]
+        dst[tgt] = getattr(rows, f)[sel]
         out[f] = dst
-    return GaussianParams(**out)
+    return GaussianParams(**out), tgt
 
 
 def _cull_mask(cfg: ModelConfig, params: GaussianParams,
@@ -163,9 +168,9 @@ def densify_and_cull(
     n_dups = dups.sum()
     dup_ok = dups & (dup_rank < n_free)
     dup_slots = free[dup_rank.clamp(0, capacity - 1)]
-    params_new = _write_rows(params, dup_slots, params, dup_ok)
-    alive_new[dup_slots[dup_ok]] = 1.0
-    touched = [dup_slots[dup_ok]]
+    params_new, tgt = _write_rows(params, dup_slots, params, dup_ok)
+    alive_new[tgt] = 1.0
+    touched = [tgt]
 
     # splits: n_split_samples children sampled inside the parent
     split_rank = torch.cumsum(splits.long(), 0) - 1
@@ -177,13 +182,13 @@ def densify_and_cull(
         slot_idx = n_dups + split_rank * cfg.n_split_samples + s
         ok = splits & (slot_idx < n_free)
         slots = free[slot_idx.clamp(0, capacity - 1)]
-        params_new = _write_rows(params_new, slots, child, ok)
-        alive_new[slots[ok]] = 1.0
-        touched.append(slots[ok])
+        params_new, tgt = _write_rows(params_new, slots, child, ok)
+        alive_new[tgt] = 1.0
+        touched.append(tgt)
 
     # Zero the moments of every written slot, and of culled slots too, so
     # stale moments never leak into a slot that is revived later.
-    touched.append(torch.nonzero(culls)[:, 0])
+    touched.append(profiling.host_read("cull", torch.nonzero, culls)[:, 0])
     adam = zero_moments_at(adam, torch.cat(touched))
     return params_new, alive_new, adam, init_stats(capacity, dev)
 

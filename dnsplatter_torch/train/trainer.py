@@ -96,6 +96,7 @@ from dnsplatter_torch.train.strategy import (
     reset_opacity,
     update_stats,
 )
+from dnsplatter_torch.utils import profiling
 from dnsplatter_torch.utils.writers import JsonlWriter, TensorboardWriter
 
 @dataclasses.dataclass(frozen=True)
@@ -203,17 +204,20 @@ def loss_and_grads(
     sink = torch.zeros_like(params.means[:, :2]).requires_grad_(True)
     if cam_adj is not None:
         camera = apply_adjustment(camera, cam_adj)
-    outputs, info, rows, rows_alive = outputs_fn(
-        leaves, alive, camera, model_cfg, raster_cfg, sh_degree, background,
-        sink, generator)
-    loss, loss_dict = compute_loss(outputs, batch, rows, rows_alive, camera,
-                                   model_cfg, step,
-                                   pearson_corners=pearson_corners,
-                                   generator=generator)
+    with profiling.span("train.forward"):
+        outputs, info, rows, rows_alive = outputs_fn(
+            leaves, alive, camera, model_cfg, raster_cfg, sh_degree,
+            background, sink, generator)
+    with profiling.span("train.loss"):
+        loss, loss_dict = compute_loss(outputs, batch, rows, rows_alive,
+                                       camera, model_cfg, step,
+                                       pearson_corners=pearson_corners,
+                                       generator=generator)
     inputs = [getattr(leaves, f) for f in FIELDS] + [sink]
     if cam_adj is not None:
         inputs.append(cam_adj)
-    grads = torch.autograd.grad(loss, inputs, allow_unused=True)
+    with profiling.span("train.backward", grad=True):
+        grads = torch.autograd.grad(loss, inputs, allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g
              for g, x in zip(grads, inputs)]
     if cam_adj is not None:
@@ -269,19 +273,22 @@ def train_step(
     camera `cam_i`'s adjusted pose and the pose optimizer takes its step
     too, `cam_state` updated in place. `outputs_fn`: see `loss_and_grads`."""
     step = int(step)
-    params = apply_binary_opacities(params, alive, model_cfg, step)
-    adj = None
-    if cam_state is not None:
-        adj = cam_state.adj[cam_i].detach().clone().requires_grad_(True)
-    loss, loss_dict, gparams, gabs, info = loss_and_grads(
-        model_cfg, raster_cfg, sh_degree, params, alive, camera, batch, step,
-        background=background, generator=generator,
-        pearson_corners=pearson_corners, cam_adj=adj, outputs_fn=outputs_fn)
-    new_params, adam, stats = apply_gradients(
-        optim_cfg, raster_cfg, params, alive, adam, stats, gparams, gabs,
-        info.radii, info.valid, step)
-    if cam_state is not None:
-        cam_opt_update(optim_cfg, cam_state, cam_i, adj.grad, step)
+    with profiling.span("train.step"):
+        params = apply_binary_opacities(params, alive, model_cfg, step)
+        adj = None
+        if cam_state is not None:
+            adj = cam_state.adj[cam_i].detach().clone().requires_grad_(True)
+        loss, loss_dict, gparams, gabs, info = loss_and_grads(
+            model_cfg, raster_cfg, sh_degree, params, alive, camera, batch,
+            step, background=background, generator=generator,
+            pearson_corners=pearson_corners, cam_adj=adj,
+            outputs_fn=outputs_fn)
+        with profiling.span("train.optim"):
+            new_params, adam, stats = apply_gradients(
+                optim_cfg, raster_cfg, params, alive, adam, stats, gparams,
+                gabs, info.radii, info.valid, step)
+            if cam_state is not None:
+                cam_opt_update(optim_cfg, cam_state, cam_i, adj.grad, step)
     return new_params, adam, stats, loss, loss_dict
 
 
@@ -535,7 +542,8 @@ class Trainer:
         axis = self.mesh.gauss_axis
         flag = torch.tensor([float(self._view_request.is_set())],
                             device=self.device)
-        if not float(C.all_reduce_max(flag, axis)):
+        if not profiling.host_read("view_flag", float,
+                                   C.all_reduce_max(flag, axis)):
             return
         params, alive = self._full_params()
         if self.viewer is not None:
@@ -586,7 +594,7 @@ class Trainer:
             from dnsplatter_torch.parallel.collectives import all_reduce_sum
 
             n = all_reduce_sum(n, self.mesh.gauss_axis)
-        return int(n)
+        return profiling.host_read("alive_count", int, n)
 
     # -- refinement -------------------------------------------------------
 
@@ -599,14 +607,15 @@ class Trainer:
         step = self.step
         if step <= cfg.warmup_length or step % cfg.refine_every != 0:
             return
-        if self.mesh is not None:
-            self._gather_state()
-            try:
+        with profiling.span("train.refine"):
+            if self.mesh is not None:
+                self._gather_state()
+                try:
+                    self._refine(camera)
+                finally:
+                    self._shard_state()
+            else:
                 self._refine(camera)
-            finally:
-                self._shard_state()
-        else:
-            self._refine(camera)
 
     def _refine(self, camera: Camera) -> None:
         cfg = self.model_cfg
@@ -645,7 +654,7 @@ class Trainer:
         if tc.capacity_growth <= 1.0:
             return False
         cap = self.params.capacity
-        n_alive = int(self.alive.sum())
+        n_alive = profiling.host_read("alive_count", int, self.alive.sum())
         if n_alive < int(0.95 * cap):
             return False
         new_cap = int(np.ceil(cap * tc.capacity_growth / 4096) * 4096)
@@ -674,23 +683,27 @@ class Trainer:
         """Render one eval frame and compute quick metrics."""
         from dnsplatter_torch.eval import metrics as M
 
-        data = eval_data or self.data
-        cam, batch = data.get(index % len(data))
-        sh = sh_degree_to_use(self.step, self.model_cfg)
-        params, alive = self._full_params()
-        out, _ = get_outputs(
-            params, alive, cam, self.model_cfg,
-            self._raster_cfg(cam), sh_degree=sh, training=False,
-            background=torch.zeros(3, device=self.device))
-        if self.viewer is not None:
-            self.viewer.update(images={"rgb": out["rgb"].cpu().numpy(),
-                                       "depth": out["depth"].cpu().numpy()})
-        row = {f"rgb_{k}": v for k, v in M.rgb_metrics(
-            out["rgb"], self._tensor(batch["image"])).items()}
-        if "sensor_depth" in batch:
-            row.update({f"depth_{k}": v for k, v in M.depth_metrics(
-                out["depth"], self._tensor(batch["sensor_depth"])).items()})
-        row["gaussian_count"] = int(alive.sum())
+        with profiling.span("train.eval"):
+            data = eval_data or self.data
+            cam, batch = data.get(index % len(data))
+            sh = sh_degree_to_use(self.step, self.model_cfg)
+            params, alive = self._full_params()
+            out, _ = get_outputs(
+                params, alive, cam, self.model_cfg,
+                self._raster_cfg(cam), sh_degree=sh, training=False,
+                background=torch.zeros(3, device=self.device))
+            if self.viewer is not None:
+                self.viewer.update(images={
+                    k: profiling.host_read("eval", out[k].cpu).numpy()
+                    for k in ("rgb", "depth")})
+            row = {f"rgb_{k}": v for k, v in M.rgb_metrics(
+                out["rgb"], self._tensor(batch["image"])).items()}
+            if "sensor_depth" in batch:
+                row.update({f"depth_{k}": v for k, v in M.depth_metrics(
+                    out["depth"],
+                    self._tensor(batch["sensor_depth"])).items()})
+            row["gaussian_count"] = profiling.host_read("eval", int,
+                                                        alive.sum())
         return row
 
     # -- the loop ---------------------------------------------------------
@@ -727,6 +740,8 @@ class Trainer:
         step_fn = functools.partial(train_step, self.model_cfg,
                                     self.optim_cfg, self._raster_cfg(cam),
                                     sh)
+        with profiling.span("train.data"):
+            batch = self._device_batch(cam_i, batch)
         if self.mesh is not None:
             from dnsplatter_torch.parallel import sharding, tile_sharding
 
@@ -737,9 +752,8 @@ class Trainer:
                            self._raster_cfg(cam), sh, self.mesh)
         (self.params, self.adam, self.stats, loss, self.last_loss_dict
          ) = step_fn(
-            self.params, self.alive, self.adam, self.stats, cam,
-            self._device_batch(cam_i, batch), self.step,
-            generator=self.generator,
+            self.params, self.alive, self.adam, self.stats, cam, batch,
+            self.step, generator=self.generator,
             cam_state=self.cam_opt if pose_opt else None,
             cam_i=cam_i[0] if isinstance(cam_i, tuple) else cam_i)
         self.step += 1
@@ -767,29 +781,31 @@ class Trainer:
                 else:
                     for _ in range(k_now):
                         cam_i = self.step % n
-                        cam, batch = self.data.get(cam_i)
-                        if d > 1:
-                            cam, batch = self._downscaled(cam_i, cam, batch,
-                                                          d)
-                            cam_i = (cam_i, d)
+                        with profiling.span("train.data"):
+                            cam, batch = self.data.get(cam_i)
+                            if d > 1:
+                                cam, batch = self._downscaled(cam_i, cam,
+                                                              batch, d)
+                                cam_i = (cam_i, d)
                         loss = self.train_one(cam, batch, cam_i, sh)
                 self._refinement(cam)
                 if serve_view:
                     self._serve_view()
             if self.step % log_every == 0 or self.step == target:
-                loss_v = float(loss)
-                n_alive = self._alive_count()
-                dt = time.time() - t0
-                row = dict(step=self.step, loss=loss_v, n_gaussians=n_alive,
-                           wall_s=round(dt, 2))
-                self._history.append(row)
-                for wtr in self._writers:
-                    wtr.write_scalars(self.step, row)
-                if self.viewer is not None:
-                    self.viewer.update(stats=row)
-                if self._is_main():
-                    print(f"step {self.step:6d}  loss {loss_v:.4f}  "
-                          f"gaussians {n_alive}  {dt:.1f}s", flush=True)
+                with profiling.span("train.log"):
+                    loss_v = profiling.host_read("loss", float, loss)
+                    n_alive = self._alive_count()
+                    dt = time.time() - t0
+                    row = dict(step=self.step, loss=loss_v,
+                               n_gaussians=n_alive, wall_s=round(dt, 2))
+                    self._history.append(row)
+                    for wtr in self._writers:
+                        wtr.write_scalars(self.step, row)
+                    if self.viewer is not None:
+                        self.viewer.update(stats=row)
+                    if self._is_main():
+                        print(f"step {self.step:6d}  loss {loss_v:.4f}  "
+                              f"gaussians {n_alive}  {dt:.1f}s", flush=True)
             spe = self.train_cfg.steps_per_eval_image
             if spe and self.step % spe == 0:
                 m = self.eval_image(self.step // spe, eval_data)
@@ -816,14 +832,15 @@ class Trainer:
         dp = self.dp
         gidx = [(self.step * dp + r) % n for r in range(dp)]
         i = gidx[self.mesh.dp_axis.rank]
-        cam, batch = self.data.get(i)
+        with profiling.span("train.data"):
+            cam, batch = self.data.get(i)
+            batch = self._device_batch(i, batch)
         pose_opt = self.model_cfg.camera_optimizer_mode != "off"
         step_fn = make_dp_train_step(self.model_cfg, self.optim_cfg,
                                      self._raster_cfg(cam), sh, self.mesh)
         (self.params, self.adam, self.stats, loss, self.last_loss_dict
          ) = step_fn(self.params, self.alive, self.adam, self.stats, cam,
-                     self._device_batch(i, batch), self.step,
-                     generator=self.generator,
+                     batch, self.step, generator=self.generator,
                      cam_state=self.cam_opt if pose_opt else None,
                      frame_idx=gidx)
         self.step += 1

@@ -236,8 +236,9 @@ def test_export_lpips_weights_without_lpips_exits(monkeypatch, tmp_path):
 
 def test_profiling_trace_and_timers(tmp_path, monkeypatch):
     """`trace` writes a Chrome trace of the block and yields the profiler;
-    the section timers and rays/s are the JAX module's, on the same
-    clock readings."""
+    the recorder's summary sums each span's host time as the JAX module's
+    section timers do, on the same clock readings; rays/s is the JAX
+    module's."""
     from dnsplatter_torch.utils import profiling as tprof
     from dnsplatter_tpu.utils import profiling as jprof
 
@@ -245,17 +246,25 @@ def test_profiling_trace_and_timers(tmp_path, monkeypatch):
         torch.ones(64, 64) @ torch.ones(64, 64)
     assert any("mm" in e.name for e in prof.events())
     assert json.loads((tmp_path / "t" / "trace.json").read_text())
-    summaries = []
-    for mod in (jprof, tprof):
-        clock = iter([0.0, 0.25, 1.0, 1.5, 2.0, 2.125])
-        monkeypatch.setattr(mod.time, "perf_counter", lambda: next(clock))
-        timers = mod.SectionTimers()
-        for name in ("render", "loss", "render"):
-            with timers.section(name):
+    readings = [0.0, 0.25, 1.0, 1.5, 2.0, 2.125]
+    clock = iter(readings)
+    monkeypatch.setattr(jprof.time, "perf_counter", lambda: next(clock))
+    timers = jprof.SectionTimers()
+    for name in ("render", "loss", "render"):
+        with timers.section(name):
+            pass
+    clock_ns = iter(int(r * 1e9) for r in readings)
+    monkeypatch.setattr(tprof.time, "perf_counter_ns", lambda: next(clock_ns))
+    with tprof.recording():
+        for name in ("model.outputs", "train.loss", "model.outputs"):
+            with tprof.span(name):
                 pass
-        summaries.append(timers.summary())
-    assert summaries[0] == summaries[1]
-    assert summaries[1]["render"] == {"total_s": 0.375, "count": 2,
-                                      "mean_ms": 187.5}
+    spans = tprof.record()["spans"]
+    for jname, tname in (("render", "model.outputs"), ("loss", "train.loss")):
+        want = timers.summary()[jname]
+        assert spans[tname]["n"] == want["count"]
+        assert spans[tname]["host_ms"] == pytest.approx(1e3 * want["total_s"])
+    assert spans["model.outputs"] == {"n": 2, "host_ms": 375.0,
+                                      "stream_ms": None, "parent": None}
     assert tprof.rays_per_sec(64, 48, 0.5) == jprof.rays_per_sec(64, 48,
                                                                   0.5)
