@@ -71,7 +71,13 @@ Phases (any failure raises and the script exits non-zero):
    decoupled look-back) bit-equal to the plain version and between two
    runs, timed beside torch.cumsum along dim 1 (`library_ms`) and one
    1-D torch.cumsum a row (`library_rowwise_ms`, a library device scan).
-   Times: device time per call, from a batch of calls queued back to back
+   The SH colour pair (`sh_colors`, `sh_colors_backward`) at the benchmark
+   configurations' state capacities, 1,253,376 and 3,751,936 rows, degree
+   3: colours and the three gradients through autograd against the plain
+   version (`eval_sh` on the concatenated coefficients) within 1e-5 of each
+   array's largest magnitude, 1e-4 for the direction's gradient (see
+   `check_sh_colors`); in phase 4 each trained step launches the backward
+   once and the forward at least once. Times: device time per call, from a batch of calls queued back to back
    behind a spin kernel between one pair of CUDA events (median of three
    batches), so the host's per-call cost is not in it. The bound is the
    larger of the bytes the function must move / 3.35 TB/s and its FP32
@@ -268,6 +274,11 @@ MUSHROOM_LONG, MUSHROOM_SHORT, MUSHROOM_TEST = 10, 2, ("0002", "0007")
 MUSHROOM_STEPS = 10
 MUSHROOM_SEEDS = 1_000_000  # the parser's default, the dataset's own
 LPIPS_CPU_RTOL = 1e-4
+# the SH colour pair at the benchmark configurations' state capacities
+SH_ROWS = (("room_1m", 1_253_376), ("big_3m", 3_751_936))
+SH_TOL = 1e-5  # colours, d_features_dc, d_features_rest: x the array's max
+SH_DIRS_TOL = 1e-4  # d_dirs: x the array's max (cancelling basis terms)
+SH_BYTES_PER_ROW = 216 + 420  # forward + backward at degree 3, K = 16
 
 
 def log(msg: str) -> None:
@@ -1175,6 +1186,7 @@ STEP_KERNELS = ("expand_segments", "expand_segments_stream", "forward_tiles",
                 "backward_tiles")
 REDUCERS = ("reduce_segments_bykey", "reduce_segments_packed",
             "reduce_segments_packed_multi", "reduce_segments")
+SH_KERNELS = ("sh_colors", "sh_colors_backward")
 
 
 def expected_step_launches(steps: int, capacity: int, reducer: str) -> dict:
@@ -1185,6 +1197,76 @@ def expected_step_launches(steps: int, capacity: int, reducer: str) -> dict:
     want["expand_segments_stream" if stream else "expand_segments"] = steps
     want["forward_tiles"] = want["backward_tiles"] = want[reducer] = steps
     return want
+
+
+def sh_inputs(n: int, dev, seed: int):
+    """features_dc, features_rest (K = 16), dirs and a colour gradient of n
+    rows, on the card. Rows whose degree-3 colour lies within 1e-3 of the
+    clamp at 0 are moved 0.01 above it, so that rounding cannot put the
+    kernel and the plain version of one row on different sides of it."""
+    import torch
+
+    from dnsplatter_torch.ops.sh import C0, sh_basis
+
+    g = torch.Generator(dev).manual_seed(seed)
+    dc = torch.randn(n, 3, device=dev, generator=g)
+    rest = 0.5 * torch.randn(n, 15, 3, device=dev, generator=g)
+    dirs = 3.0 * torch.randn(n, 3, device=dev, generator=g)
+    dcolors = torch.randn(n, 3, device=dev, generator=g)
+    d64 = dirs.double()
+    u = d64 / d64.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+    coeffs = torch.cat([dc[:, None], rest], 1).double()
+    raw = (sh_basis(3, u)[..., None] * coeffs).sum(1) + 0.5
+    dc = dc + torch.where(raw.abs() < 1e-3, 0.01 / C0, 0.0).float()
+    return dc, rest, dirs, dcolors
+
+
+def check_sh_colors(rc, n: int, scene: str, gpu: str) -> dict:
+    """The SH colour pair (`sh_colors` forward, `sh_colors_backward`) at n
+    rows, degree 3, K = 16, against the plain version through autograd:
+    colours and the three gradients within SH_TOL / SH_DIRS_TOL of each
+    array's largest magnitude. Times each kernel, the pair's plain version
+    (eval_sh on the concatenated coefficients, forward and autograd's
+    backward) and the bound: 636 bytes a row / 3.35 TB/s."""
+    import torch
+
+    dev = torch.device("cuda")
+    dc, rest, dirs, dcolors = sh_inputs(n, dev, seed=n)
+    lk = [t.clone().requires_grad_(True) for t in (dc, rest, dirs)]
+    lp = [t.clone().requires_grad_(True) for t in (dc, rest, dirs)]
+    got = rc.sh_colors(3, *lk)
+    gk = torch.autograd.grad(got, lk, dcolors)
+    want = rc.sh_colors_plain(3, *lp)
+    gp = torch.autograd.grad(want, lp, dcolors)
+    torch.cuda.synchronize()
+    got, want = got.detach(), want.detach()
+    errs = {}
+    for name, a, b, tol in (("colors", got, want, SH_TOL),
+                            ("d_features_dc", gk[0], gp[0], SH_TOL),
+                            ("d_features_rest", gk[1], gp[1], SH_TOL),
+                            ("d_dirs", gk[2], gp[2], SH_DIRS_TOL)):
+        err = float((a - b).abs().max() / b.abs().max())
+        if not err <= tol:
+            raise AssertionError(f"sh_colors ({scene}): {name} differs by "
+                                 f"{err} of its largest value, over {tol}")
+        errs[name] = err
+    del got, gk, want, gp
+    with torch.no_grad():
+        fwd_ms = device_ms(lambda: rc.sh_colors(3, dc, rest, dirs), 50)
+        bwd_ms = device_ms(lambda: rc.sh_colors_backward(
+            3, dc, rest, dirs, dcolors), 50)
+
+    def plain_pair():
+        torch.autograd.grad(rc.sh_colors_plain(3, *lp), lp, dcolors)
+
+    plain_ms = device_ms(plain_pair, 5)
+    nbytes = n * SH_BYTES_PER_ROW
+    return {"scene": scene, "kernel": "sh_colors", "rows": n,
+            "max_rel_err": errs, "max_abs_err": max(errs.values()),
+            "ms": fwd_ms + bwd_ms, "forward_ms": fwd_ms,
+            "backward_ms": bwd_ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bytes": nbytes, "gpu": gpu}
 
 
 def run_training(label, inputs, dev, gpu, steps, expect_refinement,
@@ -1220,11 +1302,16 @@ def run_training(label, inputs, dev, gpu, steps, expect_refinement,
             return trainer.train(1, log_every=1 << 30)[-1]["loss"]
 
     ms, losses, launches = timed_steps(one_step, TRAIN_WARMUP, steps,
-                                       STEP_KERNELS + REDUCERS)
+                                       STEP_KERNELS + REDUCERS + SH_KERNELS)
     want = expected_step_launches(steps, trainer.params.capacity, reducer)
-    if launches != want:
+    if {k: launches[k] for k in want} != want:
         raise AssertionError(f"[{label}] launches {launches}, "
                              f"expected {want}")
+    # the SH colours once a step each way (and once more a rendered frame)
+    if (launches["sh_colors_backward"] != steps
+            or launches["sh_colors"] < steps):
+        raise AssertionError(f"[{label}] SH launches {launches}, expected "
+                             f"{steps} backward and at least as many forward")
     for f in FIELDS:
         if not bool(torch.isfinite(getattr(trainer.params, f)).all()):
             raise AssertionError(f"[{label}] {f} is not finite")
@@ -3546,6 +3633,10 @@ def main() -> int:
     del trainer, inputs
     print(json.dumps(oracle_grad_check(dev)), flush=True)
     torch.cuda.empty_cache()
+    for scene, rows in SH_ROWS:
+        keep({"phase": "6", "sh_colors_rows": rows}, [
+            check_sh_colors(rc, rows, scene, gpu)], {})
+        torch.cuda.empty_cache()
     # -- the file-backed MuSHRoom path --
     with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=REPO) as tmp:
         keep(*run_mushroom(dev, gpu, Path(tmp)))
@@ -3589,6 +3680,8 @@ def main() -> int:
         ("reduce_segments", "train_100k_segsum", "reduce_segments.cu",
          f"{pallas}:619"),
         ("cumsum_lanes_i32", "2p24", "cumsum_lanes_i32.cu", f"{pallas}:117"),
+        ("sh_colors", "big_3m", "sh_colors.cu",
+         "none: dnsplatter_tpu/ops/sh.py eval_sh, left to XLA"),
     )
     kernels = []
     for kname, scene, source, replaces in kinds:

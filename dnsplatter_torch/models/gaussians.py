@@ -47,11 +47,6 @@ class GaussianParams:
         """Degree implied by the stored bases: B = (deg+1)^2."""
         return int(round(self.sh_bases ** 0.5)) - 1
 
-    def sh_coeffs(self) -> torch.Tensor:
-        """(C, B, 3) concatenated SH coefficients."""
-        return torch.cat([self.features_dc[:, None, :], self.features_rest],
-                         dim=1)
-
 
 FIELDS = tuple(f.name for f in dataclasses.fields(GaussianParams))
 

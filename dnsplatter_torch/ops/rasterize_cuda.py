@@ -9,7 +9,9 @@ wrapper's kernel launches: it goes up by one where the wrapper launches
 and nowhere else, and `LAUNCHES.clear()` sets every count to 0.
 
 The plain versions accept tensors on any device, so a check on the card can
-hold each kernel against them on the same inputs.
+hold each kernel against them on the same inputs. `sh_colors`, last, has no
+Pallas function (the JAX package leaves `eval_sh` to XLA): it keeps the
+contract of `ops/sh.eval_sh` on the concatenated coefficients.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import Dict, Tuple
 import torch
 
 from dnsplatter_torch.ops import kernel_build
+from dnsplatter_torch.ops.sh import eval_sh
 
 ALPHA_THRESHOLD = 1.0 / 255.0
 MAX_ALPHA = 0.999
@@ -74,6 +77,11 @@ _ENTRIES = {
     "cumsum_lanes_i32": ("cumsum_lanes_i32", "dns_cumsum_lanes_i32",
                          [_VP, _VP, _VP, ctypes.c_longlong, _I,
                           ctypes.c_longlong, _VP]),
+    "sh_colors": ("sh_colors", "dns_sh_colors",
+                  [_I, _VP, _VP, _VP, ctypes.c_longlong, _I, _VP, _VP]),
+    "sh_colors_backward": ("sh_colors", "dns_sh_colors_backward",
+                           [_I, _VP, _VP, _VP, _VP, ctypes.c_longlong, _I,
+                            _VP, _VP, _VP, _VP]),
 }
 _FNS: Dict[str, ctypes._CFuncPtr] = {}
 
@@ -846,3 +854,96 @@ def cumsum_lanes_i32(x: torch.Tensor) -> torch.Tensor:
         _stream()), "cumsum_lanes_i32")
     _count("cumsum_lanes_i32")
     return out
+
+
+# ---------------------------------------------------------------------------
+# sh_colors (no Pallas counterpart: the JAX package leaves `eval_sh` to XLA)
+# ---------------------------------------------------------------------------
+
+
+def sh_colors_plain(degree: int, features_dc: torch.Tensor,
+                    features_rest: torch.Tensor, dirs: torch.Tensor
+                    ) -> torch.Tensor:
+    """Plain PyTorch version of `sh_colors` (any device): `eval_sh` on the
+    concatenated coefficients."""
+    return eval_sh(degree, torch.cat([features_dc[:, None], features_rest],
+                                     1), dirs)
+
+
+def _sh_check(degree: int, dc: torch.Tensor, rest: torch.Tensor,
+              dirs: torch.Tensor) -> None:
+    n = dc.shape[0]
+    if not 0 <= degree <= 4:
+        raise ValueError(f"sh_colors: degree {degree} not in [0, 4]")
+    for name, t in (("features_dc", dc), ("features_rest", rest),
+                    ("dirs", dirs)):
+        if t.dtype != torch.float32 or t.device != dc.device:
+            raise ValueError(f"sh_colors: {name} must be float32 on "
+                             "features_dc's device")
+    if (dc.shape != (n, 3) or dirs.shape != (n, 3) or rest.ndim != 3
+            or rest.shape[0] != n or rest.shape[2] != 3):
+        raise ValueError("sh_colors: features_dc and dirs must be (N, 3), "
+                         "features_rest (N, K - 1, 3)")
+    if (degree + 1) ** 2 > rest.shape[1] + 1:
+        raise ValueError(f"sh_colors: degree {degree} needs "
+                         f"{(degree + 1) ** 2} coefficients a row, got "
+                         f"{rest.shape[1] + 1}")
+
+
+def sh_colors_backward(degree: int, dc: torch.Tensor, rest: torch.Tensor,
+                       dirs: torch.Tensor, dcolors: torch.Tensor,
+                       needs=(True, True, True)):
+    """The gradients of `sh_colors` for the colours' gradient dcolors
+    (N, 3): (d_features_dc, d_features_rest, d_dirs), each written once by
+    one kernel, None where `needs` says so. Contiguous card inputs only."""
+    dcolors = dcolors.contiguous()
+    outs = [torch.empty_like(t) if need else None
+            for t, need in zip((dc, rest, dirs), needs)]
+    _check_rc(_entry("sh_colors_backward")(
+        degree, dc.data_ptr(), rest.data_ptr(), dirs.data_ptr(),
+        dcolors.data_ptr(), dc.shape[0], rest.shape[1] + 1,
+        *(None if t is None else t.data_ptr() for t in outs), _stream()),
+        "sh_colors_backward")
+    _count("sh_colors_backward")
+    return tuple(outs)
+
+
+class _ShColorsFn(torch.autograd.Function):
+    """The kernel pair of csrc/sh_colors.cu: the colours forward, the three
+    gradients backward."""
+
+    @staticmethod
+    def forward(ctx, degree, dc, rest, dirs):
+        ctx.degree = degree
+        ctx.save_for_backward(dc, rest, dirs)
+        colors = torch.empty_like(dc)
+        _check_rc(_entry("sh_colors")(
+            degree, dc.data_ptr(), rest.data_ptr(), dirs.data_ptr(),
+            dc.shape[0], rest.shape[1] + 1, colors.data_ptr(), _stream()),
+            "sh_colors")
+        _count("sh_colors")
+        return colors
+
+    @staticmethod
+    def backward(ctx, dcolors):
+        return (None, *sh_colors_backward(ctx.degree, *ctx.saved_tensors,
+                                          dcolors, ctx.needs_input_grad[1:]))
+
+
+def sh_colors(degree: int, features_dc: torch.Tensor,
+              features_rest: torch.Tensor, dirs: torch.Tensor
+              ) -> torch.Tensor:
+    """Spherical-harmonic colours, differentiable in all three inputs.
+
+    features_dc (N, 3), features_rest (N, K - 1, 3) with K >= (degree + 1)^2,
+    dirs (N, 3), not necessarily unit. Returns (N, 3): `eval_sh(degree,
+    cat([features_dc[:, None], features_rest], 1), dirs)`, the colour + 0.5
+    clamped at 0. On the card one kernel computes the colours and one the
+    three gradients (`sh_colors`, `sh_colors_backward`), reading the
+    coefficients where they lie; float32 only.
+    """
+    if not _route(features_dc, "sh_colors"):
+        return sh_colors_plain(degree, features_dc, features_rest, dirs)
+    _sh_check(degree, features_dc, features_rest, dirs)
+    return _ShColorsFn.apply(degree, features_dc.contiguous(),
+                             features_rest.contiguous(), dirs.contiguous())

@@ -23,7 +23,7 @@ from dnsplatter_torch.ops.normals import (
 )
 from dnsplatter_torch.ops.projection import project_gaussians
 from dnsplatter_torch.ops.rasterize import RasterizeConfig, rasterize
-from dnsplatter_torch.ops.sh import eval_sh
+from dnsplatter_torch.ops.rasterize_cuda import sh_colors
 from dnsplatter_torch.utils import profiling
 
 
@@ -99,8 +99,9 @@ def screen_space(
             opac = opac * proj.compensations
 
         cam_pos = camera.position()
-        colors = eval_sh(sh_degree_to_use, params.sh_coeffs(),
-                         params.means - cam_pos[None, :])
+        colors = sh_colors(sh_degree_to_use, params.features_dc,
+                           params.features_rest,
+                           params.means - cam_pos[None, :])
         n_world = per_gaussian_normals(params.scales, params.quats,
                                        params.means, cam_pos)
         n_cam = world_to_camera_normals(n_world, camera.c2w)

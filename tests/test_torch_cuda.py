@@ -14,6 +14,19 @@ forward_tiles by chip_smoke.py's check: image / t_final within 1e-4
 transmittance product, the plain version exp of summed log1p, so a few
 pixels within rounding of the 1e-4 cutoff may stop one splat apart, and
 each such pixel must show exactly that.
+sh_colors (the kernel pair against `eval_sh` on the concatenated
+coefficients, run by torch on the card): colours, d_features_dc and
+d_features_rest within 1e-5 of the array's largest magnitude (about 100
+float32 ulps: the kernel fuses each product and sum into one FMA and
+normalizes the direction in its own order, where torch rounds every
+elementwise op apart, so values move by a few ulps of the largest term);
+d_dirs within 1e-4 of the largest magnitude over the ordinary rows, and of
+its own row's for rows with a zero, tiny or small direction (the basis
+derivatives sum up to 25 terms that cancel, then divide by |dirs|); the
+coefficient rows past the active degree exactly zero. Random rows are kept
+1e-3 or more from the colour clamp so that rounding cannot put the two
+sides of one row on different sides of it; rows placed exactly on it must
+agree (a tie passes the gradient).
 """
 
 from unittest import mock
@@ -1011,3 +1024,200 @@ def test_nccl_world_one_dp_step_matches_train_step(dev):
     for k in ("grad_sum", "vis_count", "max_2d"):
         torch.testing.assert_close(getattr(got[2], k), getattr(want[2], k),
                                    msg=k, **tol)
+
+
+# ---------------------------------------------------------------------------
+# sh_colors
+# ---------------------------------------------------------------------------
+
+
+def _sh_tie_dc() -> float:
+    """A float32 value v with float32(C0) * v == -0.5 exactly, so that a row
+    with features_dc v and no rest coefficients sums to 0 at the clamp."""
+    from dnsplatter_torch.ops.sh import C0
+
+    c0 = np.float32(C0)
+    v = np.float32(-0.5 / C0)
+    for _ in range(64):
+        if c0 * v == np.float32(-0.5):
+            return float(v)
+        v = np.nextafter(v, np.float32(0.0), dtype=np.float32)
+    raise AssertionError("no float32 tie value found")
+
+
+def _sh_inputs(n, degree, k, seed):
+    """features_dc, features_rest, dirs as float32 numpy arrays, and the
+    rows given a special role (empty where n < 31): a zero direction, one
+    under 1e-12, one of 1e-8, a colour far below the clamp, a colour exactly
+    on it. Every other colour lies 1e-3 or more from the clamp."""
+    from dnsplatter_torch.ops.sh import C0, sh_basis
+
+    rng = np.random.default_rng(seed)
+    dc = rng.normal(size=(n, 3)).astype(np.float32)
+    rest = (0.5 * rng.normal(size=(n, k - 1, 3))).astype(np.float32)
+    dirs = (3.0 * rng.normal(size=(n, 3))).astype(np.float32)
+    special = []
+    if n >= 31:
+        special = [0, n // 3, n // 2, 2 * n // 3, n - 1]
+        zero, tiny, small, below, tie = special
+        dirs[zero] = 0.0
+        dirs[tiny] = [1e-13, -2e-13, 3e-14]
+        dirs[small] = [1e-8, 2e-8, -1e-8]
+        dc[below] = -50.0
+        dc[tie] = _sh_tie_dc()
+        rest[tie] = 0.0
+    d64 = torch.as_tensor(dirs, dtype=torch.float64)
+    u = d64 / d64.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+    nb = (degree + 1) ** 2
+    coeffs = torch.as_tensor(np.concatenate([dc[:, None], rest], 1),
+                             dtype=torch.float64)[:, :nb]
+    raw = (sh_basis(degree, u)[..., None] * coeffs).sum(1).numpy() + 0.5
+    near = np.abs(raw) < 1e-3
+    if special:
+        near[special[-1]] = False
+    dc += np.where(near, np.float32(0.01 / C0), np.float32(0.0))
+    return dc, rest, dirs, special
+
+
+def _sh_leaves(arrays, dev, strided):
+    """Leaf tensors on `dev` and the views of them the entry is given: the
+    leaves themselves, or non-contiguous views of larger leaves."""
+    dc, rest, dirs = (torch.as_tensor(a, device=dev) for a in arrays)
+    if not strided:
+        leaves = [t.clone().requires_grad_(True) for t in (dc, rest, dirs)]
+        return leaves, leaves
+    leaves = [torch.stack([dc, -dc], 1).requires_grad_(True),
+              rest.transpose(0, 1).contiguous().requires_grad_(True),
+              dirs.t().contiguous().requires_grad_(True)]
+    views = [leaves[0][:, 0], leaves[1].transpose(0, 1), leaves[2].t()]
+    assert not any(v.is_contiguous() for v in views)
+    return leaves, views
+
+
+def _sh_check(dev, n, degree, k, seed=0, strided=False):
+    arrays = _sh_inputs(n, degree, k, seed)
+    special = arrays[3]
+    lk, vk = _sh_leaves(arrays[:3], dev, strided)
+    lp, vp = _sh_leaves(arrays[:3], dev, strided)
+    w = torch.as_tensor(np.random.default_rng(seed + 1).normal(
+        size=(n, 3)).astype(np.float32), device=dev)
+    before = (rc.LAUNCHES["sh_colors"], rc.LAUNCHES["sh_colors_backward"])
+    got = rc.sh_colors(degree, *vk)
+    grads_k = torch.autograd.grad((got * w).sum(), lk)
+    assert (rc.LAUNCHES["sh_colors"], rc.LAUNCHES["sh_colors_backward"]) \
+        == (before[0] + 1, before[1] + 1)
+    want = rc.sh_colors_plain(degree, *vp)
+    grads_p = torch.autograd.grad((want * w).sum(), lp, allow_unused=True)
+    # the plain path has no gradient path to dirs at degree 0
+    grads_p = [torch.zeros_like(t) if g is None else g
+               for g, t in zip(grads_p, lp)]
+    torch.cuda.synchronize()
+    if strided:  # back to (N, 3), (N, K - 1, 3), (N, 3)
+        grads_k = [grads_k[0][:, 0], grads_k[1].transpose(0, 1),
+                   grads_k[2].t()]
+        grads_p = [grads_p[0][:, 0], grads_p[1].transpose(0, 1),
+                   grads_p[2].t()]
+
+    def near(a, b, tol, what):
+        a, b = a.detach(), b.detach()
+        err = float((a - b).abs().max()) if a.numel() else 0.0
+        scale = float(b.abs().max()) if b.numel() else 0.0
+        assert err <= tol * scale, f"{what}: {err} > {tol} x {scale}"
+
+    near(got, want, 1e-5, "colors")
+    near(grads_k[0], grads_p[0], 1e-5, "d_features_dc")
+    near(grads_k[1], grads_p[1], 1e-5, "d_features_rest")
+    assert torch.all(grads_k[1][:, (degree + 1) ** 2 - 1:] == 0)
+    ordinary = torch.ones(n, dtype=torch.bool, device=dev)
+    ordinary[special[:3]] = False
+    near(grads_k[2][ordinary], grads_p[2][ordinary], 1e-4, "d_dirs")
+    for row in special[:3]:
+        near(grads_k[2][row], grads_p[2][row], 1e-4, f"d_dirs row {row}")
+    if special:
+        below, tie = special[3:]
+        assert torch.all(got[below] == 0) and torch.all(grads_k[0][below] == 0)
+        assert torch.all(got[tie] == 0) and torch.equal(grads_k[0][tie],
+                                                        grads_p[0][tie])
+        assert torch.all(grads_k[0][tie] != 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 1000, 100003])
+@pytest.mark.parametrize("degree", [0, 1, 2, 3, 4])
+def test_sh_colors_kernel_matches_plain(dev, degree, n):
+    """K = 16 at every degree below 4 (25 at 4), so the rows past the active
+    degree must get exact zeros."""
+    _sh_check(dev, n, degree, max(16, (degree + 1) ** 2), seed=n + degree)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("degree,k", [(0, 16), (1, 25), (3, 16), (4, 25),
+                                      (3, 21)])
+def test_sh_colors_kernel_non_contiguous_inputs(dev, degree, k):
+    """Views that the wrapper makes contiguous. Where K > (degree + 1)^2 the
+    kernel stages the active coefficients word by word and stores zeros
+    past them."""
+    _sh_check(dev, 1000, degree, k, seed=k, strided=True)
+
+
+@pytest.mark.cuda
+def test_sh_colors_kernel_refuses_bad_inputs(dev):
+    n = 64
+    dc = torch.zeros(n, 3, device=dev)
+    rest = torch.zeros(n, 15, 3, device=dev)
+    dirs = torch.ones(n, 3, device=dev)
+    bad = {
+        "float64": (3, dc.double(), rest, dirs),
+        "dc shape": (3, torch.zeros(n, 4, device=dev), rest, dirs),
+        "rest rows": (3, dc, torch.zeros(n + 1, 15, 3, device=dev), dirs),
+        "rest width": (3, dc, torch.zeros(n, 15, 4, device=dev), dirs),
+        "dirs shape": (3, dc, rest, torch.ones(n, 2, device=dev)),
+        "dirs on the CPU": (3, dc, rest, torch.ones(n, 3)),
+        "degree 4 with K 16": (4, dc, rest, dirs),
+        "degree 5": (5, dc, torch.zeros(n, 40, 3, device=dev), dirs),
+        "degree -1": (-1, dc, rest, dirs),
+    }
+    before = dict(rc.LAUNCHES)
+    for what, args in bad.items():
+        with pytest.raises(ValueError, match="sh_colors"):
+            rc.sh_colors(*args)
+    assert dict(rc.LAUNCHES) == before
+
+
+@pytest.mark.cuda
+def test_sh_colors_launches_once_a_step_and_once_a_frame(dev):
+    """One `train_step` launches the forward and the backward once each;
+    one `get_outputs` under no_grad the forward once and the backward
+    never."""
+    from dnsplatter_torch.data.synthetic import make_synthetic_scene
+    from dnsplatter_torch.models.dn_model import ModelConfig, get_outputs
+    from dnsplatter_torch.models.gaussians import init_from_points
+    from dnsplatter_torch.train.optim import OptimConfig, init_adam
+    from dnsplatter_torch.train.strategy import init_stats
+    from dnsplatter_torch.train.trainer import train_step
+
+    scene = make_synthetic_scene(seed=0, n_gaussians=300, n_cameras=2,
+                                 width=96, height=64, device=dev)
+    rng = np.random.default_rng(0)
+    pts = rng.uniform(-1, 1, (300, 3)).astype(np.float32)
+    params, alive, _ = init_from_points(rng, pts, sh_degree=3, capacity=512,
+                                        device=dev)
+    mc = ModelConfig(use_depth_loss=True, depth_lambda=0.2, sh_degree=3,
+                     background_color="black")
+    rcfg = RasterizeConfig(width=96, height=64, chunk=32, tile_block=4,
+                           pair_capacity=1 << 14, backend="cuda",
+                           sort_scheme="depthq")
+    cam, batch = scene.get(1)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    names = ("sh_colors", "sh_colors_backward")
+    rc.LAUNCHES.clear()
+    out = train_step(mc, OptimConfig(), rcfg, 3, params, alive,
+                     init_adam(params), init_stats(512, dev), cam, batch, 0)
+    torch.cuda.synchronize()
+    assert [rc.LAUNCHES[k] for k in names] == [1, 1]
+    rc.LAUNCHES.clear()
+    with torch.no_grad():
+        get_outputs(out[0], alive, cam, mc, rcfg, sh_degree=3,
+                    training=False)
+    torch.cuda.synchronize()
+    assert [rc.LAUNCHES[k] for k in names] == [1, 0]
