@@ -136,7 +136,9 @@ def main(argv=None) -> int:
 
     import torch
 
-    from harness import cells, drivers
+    from harness import cells
+    from harness import scene as S
+    from harness.driving import PROGRAM_FIELDS, ref_cam
 
     if not torch.cuda.is_available():
         print("calibrate needs the card", file=sys.stderr)
@@ -146,6 +148,8 @@ def main(argv=None) -> int:
     cfg = cells.config(bench, cell["config"])
     mix = cells.traffic(cell["traffic"])
     lim = cells.limits(args.workload)
+    D = cells.driver(mix["kind"])
+    R = cells.reference(cfg)
     dev = "cuda"
 
     def emit(kind, seed, nums, t0, leaves=None):
@@ -173,11 +177,11 @@ def main(argv=None) -> int:
         def readings(seed, lowp_too, fault=None):
             ctx = FAULTS[fault]() if fault else contextlib.nullcontext()
             with ctx:
-                tr, scene, prog = drivers.train_setup(cfg, mix, seed, dev)
+                tr, scene, prog = D.train_setup(cfg, mix, seed, dev)
             del tr
             free()
-            ref = drivers.train_reference(cfg, mix, scene, lowp=False)
-            low = (drivers.train_reference(cfg, mix, scene, lowp=True)
+            ref = D.train_reference(cfg, mix, scene, lowp=False)
+            low = (D.train_reference(cfg, mix, scene, lowp=True)
                    if lowp_too else None)
             return prog, ref, low
 
@@ -185,16 +189,16 @@ def main(argv=None) -> int:
         for seed in _seeds(args.seeds):
             t0 = time.perf_counter()
             prog, ref, low = readings(seed, seed in control)
-            emit("program", seed, drivers.train_numbers(prog, ref), t0,
+            emit("program", seed, D.train_numbers(prog, ref), t0,
                  leaves(prog, ref))
             if low is not None:
-                emit("control", seed, drivers.train_numbers(low, ref), t0,
+                emit("control", seed, D.train_numbers(low, ref), t0,
                      leaves(low, ref))
             free()
         for seed in sorted(control - set(_seeds(args.seeds))):
             t0 = time.perf_counter()
             _, ref, low = readings(seed, True)
-            emit("control", seed, drivers.train_numbers(low, ref), t0,
+            emit("control", seed, D.train_numbers(low, ref), t0,
                  leaves(low, ref))
             free()
         for fault in args.fault:
@@ -202,38 +206,37 @@ def main(argv=None) -> int:
                 t0 = time.perf_counter()
                 prog, ref, _ = readings(seed, False, fault)
                 emit(f"fault:{fault}", seed,
-                     drivers.train_numbers(prog, ref), t0, leaves(prog, ref))
+                     D.train_numbers(prog, ref), t0, leaves(prog, ref))
                 free()
         return 0
 
     for seed in _seeds(args.seeds):
         t0 = time.perf_counter()
-        oc = drivers.run_render(cfg, mix, lim, seed, args.seconds, False,
-                                dev, t0)
+        oc = D.run(cfg, mix, lim, seed, args.seconds, False, dev, t0)
         emit("program", seed, {k: c["value"] for k, c in oc.checks.items()},
              t0)
         free()
     for seed in _seeds(args.control_seeds):
         t0 = time.perf_counter()
-        scene = drivers.S.make_scene(cfg, seed, dev, with_targets=False)
-        pairs = drivers.R.pair_counts(
-            {f: scene.state[f] for f in drivers.PROGRAM_FIELDS},
-            scene.state["alive"], [drivers.ref_cam(scene, i)
+        scene = S.make_scene(cfg, seed, dev, with_targets=False)
+        pairs = R.pair_counts(
+            {f: scene.state[f] for f in PROGRAM_FIELDS},
+            scene.state["alive"], [ref_cam(R, scene, i)
                                    for i in range(int(cfg["frames"]))])
         heavy = max(range(len(pairs)), key=pairs.__getitem__)
-        frames = drivers.render_sample(cfg, mix, seed, heavy)
-        want = drivers.render_reference(cfg, scene, frames, lowp=False)
-        low = drivers.render_reference(cfg, scene, frames, lowp=True)
+        frames = D.render_sample(cfg, mix, seed, heavy)
+        want = D.render_reference(cfg, scene, frames, lowp=False)
+        low = D.render_reference(cfg, scene, frames, lowp=True)
         got = {i: {k: v.cpu().numpy() for k, v in low[i].items()}
                for i in frames}
-        emit("control", seed, drivers.render_numbers(got, want), t0)
+        emit("control", seed, D.render_numbers(got, want), t0)
         del scene, want, low, got
         free()
     for fault in args.fault:
         for seed in _seeds(args.fault_seeds):
             t0 = time.perf_counter()
-            oc = drivers.run_render(cfg, mix, lim, seed, args.seconds, False,
-                                    dev, t0, fault=FAULTS[fault])
+            oc = D.run(cfg, mix, lim, seed, args.seconds, False, dev, t0,
+                       fault=FAULTS[fault])
             emit(f"fault:{fault}", seed,
                  {k: c["value"] for k, c in oc.checks.items()}, t0)
             free()

@@ -1,13 +1,21 @@
 """Where the harness finds a cell's parts, by the names in BENCHMARK.json.
 
-* a configuration: `configs/<config>.json`;
-* a traffic mix: `traffic/<traffic>.json`, whose `kind` names the driver
-  that reads it (`train` or `render`);
+* a configuration: `configs/<config>.json`; its `reference` key names
+  the module of its plain reference, imported by that name with
+  `benchmark/` on the import path (`harness.reference` for the
+  DN-Splatter configurations; a later one may bring its own, such as
+  `references/<name>.py`, importing from `harness.reference`);
+* a traffic mix: `traffic/<traffic>.json`, whose `kind` names its driver,
+  the module `drivers/<kind>.py` (imported as `drivers.<kind>`), with
+  `run(cfg, mix, limits, seed, seconds, trace, device, t_start)`
+  returning a `harness.driving.Outcome`; a driver passes its own span
+  table to `harness.trace`;
 * a per-layer metric: `metrics/<metric>.py`, a module with
   `read(ctx) -> float | None`;
 * the limits of a cell's correctness check: `limits/<workload>.json`.
 
-A later cell, configuration or metric is added as files and entries only.
+A later cell, configuration, reference, traffic kind or metric is added
+as files and entries only.
 """
 
 from __future__ import annotations
@@ -15,6 +23,7 @@ from __future__ import annotations
 import importlib.util
 import json
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, Dict, List
 
 BENCH_DIR = Path(__file__).resolve().parents[1]
@@ -74,3 +83,16 @@ def reader(metric: str, bench_dir: Path = BENCH_DIR) -> Callable:
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read
+
+
+def driver(kind: str) -> ModuleType:
+    """The module `drivers/<kind>.py` of a traffic mix's `kind`, imported
+    by its name, so that it loads once."""
+    return importlib.import_module(f"drivers.{kind}")
+
+
+def reference(cfg: Dict) -> ModuleType:
+    """The plain reference that a configuration names under `reference`,
+    imported by that name: under a second name its classes (`Cam`,
+    `Event`) would be a second set."""
+    return importlib.import_module(cfg["reference"])

@@ -2,9 +2,10 @@
 
 The benchmark records its spans from its own files: in a traced run it
 wraps attributes of the program's modules with
-`torch.profiler.record_function` (the table `SPANS`, the pattern of the
-program's `scripts/profile_frame.TRAIN_STAGES`, frozen here), profiles a
-short steady stretch with CPU and CUDA activity, and reduces the trace to:
+`torch.profiler.record_function` (a driver's span table; `SPANS`, the
+pattern of the program's `scripts/profile_frame.TRAIN_STAGES`, frozen
+here, is the `train` and `render` drivers'), profiles a short steady
+stretch with CPU and CUDA activity, and reduces the trace to:
 
 * the device time of the kernels launched inside each span;
 * the device-busy time, the union of all device operations' intervals;
@@ -25,7 +26,8 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
 # (module, attribute, span): each is wrapped in a profiler range of that
-# name for the profiled stretch.
+# name for the profiled stretch. The Gaussian drivers' table; a driver of
+# another kind passes its own.
 SPANS = (
     ("dnsplatter_torch.train.trainer", "get_outputs", "get_outputs"),
     ("dnsplatter_torch.ops.rasterize", "bin_gaussians", "bin_gaussians"),
@@ -49,11 +51,13 @@ def _ranged(fn: Callable, label: str) -> Callable:
 
 
 @contextlib.contextmanager
-def spans_installed() -> Iterator[None]:
-    """Every entry of SPANS wrapped for the duration."""
+def spans_installed(spans: Tuple[Tuple[str, str, str], ...]
+                    ) -> Iterator[None]:
+    """Every (module, attribute, label) entry of `spans` wrapped for the
+    duration."""
     saved = []
     try:
-        for mod, attr, label in SPANS:
+        for mod, attr, label in spans:
             m = importlib.import_module(mod)
             fn = getattr(m, attr)
             saved.append((m, attr, fn))
@@ -95,9 +99,10 @@ def _is_runtime_call(name: str) -> bool:
     return name.startswith(("cuda", "cu")) and not name.startswith("cub")
 
 
-def reduce_trace(prof, wall_s: float) -> Dict:
+def reduce_trace(prof, wall_s: float, labels: Tuple[str, ...]) -> Dict:
     """The profiled stretch's numbers, times in seconds: `span_device_s`
-    {span: device time of the operations launched inside it}, `busy_s`,
+    {span: device time of the operations launched inside it}, for the
+    span labels of the driver's table (`labels`), `busy_s`,
     `window_s`, `kernels` (launches), `device_ops` and `idle_gaps` (top
     10 each).
 
@@ -112,10 +117,10 @@ def reduce_trace(prof, wall_s: float) -> Dict:
     for e in prof.events():
         s, t = e.time_range.start / 1e6, e.time_range.end / 1e6
         if e.device_type == DeviceType.CUDA:
-            if e.name not in LABELS:
+            if e.name not in labels:
                 dev_ops.append((s, t, e.name, e.id))
             continue
-        if e.name in LABELS:
+        if e.name in labels:
             host_spans.append((s, t, e.name))
         elif _is_runtime_call(e.name):
             launch_at[e.id] = s
@@ -123,7 +128,7 @@ def reduce_trace(prof, wall_s: float) -> Dict:
         raise RuntimeError("the profiler recorded no device activity")
     dev_ops.sort()
     span_s = {}
-    for label in LABELS:
+    for label in labels:
         ivs = sorted((s, t) for s, t, n in host_spans if n == label)
         if not ivs:
             continue

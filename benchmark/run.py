@@ -5,16 +5,17 @@
 
 The cell (BENCHMARK.json `workloads`) names a configuration
 (`configs/<name>.json`) and a traffic mix (`traffic/<name>.json`); the
-mix's `kind` picks the driver (`harness/drivers.py`). The run makes its
+mix's `kind` picks the driver (`drivers/<kind>.py`). The run makes its
 scene and state from the seed on the card, sets up and warms the program
 (counted as `setup_s`), measures for `--seconds`, and with `--trace 1`
 profiles a steady stretch after the window for the per-layer metrics
 (`metrics/<name>.py`). Then it frees the program's state, checks the
-program's outputs against the plain reference (`harness/reference.py`)
-with the cell's limits (`limits/<cell>.json`), and prints, as the last
-line of stdout, one JSON object: correct, attempted, failed, metrics,
-device, with --trace 1 breakdown, and checks (each compared number with
-its limit), which also end stderr.
+program's outputs against the plain reference that the configuration
+names (`harness/reference.py` for the DN-Splatter ones) with the cell's
+limits (`limits/<cell>.json`), and prints, as the last line of stdout,
+one JSON object: correct, attempted, failed, metrics, device, with
+--trace 1 breakdown, and checks (each compared number with its limit),
+which also end stderr.
 
 It needs an NVIDIA card and fails without one; it never falls back to the
 CPU.
@@ -147,11 +148,9 @@ def main(argv=None) -> int:
     print(f"card: {card}, devices {torch.cuda.device_count()}, "
           f"nvidia-smi: {limit}", file=sys.stderr)
 
-    from harness import drivers
-
-    run = drivers.DRIVERS[mix["kind"]]
-    oc = run(cfg, mix, limits, args.seed, args.seconds, bool(args.trace),
-             "cuda", T_START)
+    oc = cells.driver(mix["kind"]).run(
+        cfg, mix, limits, args.seed, args.seconds, bool(args.trace), "cuda",
+        T_START)
 
     ctx_metrics = (layer_metrics(bench, args.workload, oc.layer_ctx)
                    if args.trace else None)

@@ -13,6 +13,9 @@ from conftest import BENCH_DIR, ROOT
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "dnsplatter_tpu"}
 REFERENCE_SIDE = ("harness/reference.py", "harness/scene.py",
                   "harness/work.py")
+# What takes its reference from the configuration (`cells.reference`).
+REFERENCE_BY_CONFIG = ("run.py", "calibrate.py", "harness/driving.py",
+                       "drivers/train.py", "drivers/render.py")
 
 
 def _loaded(code: str) -> set:
@@ -27,11 +30,15 @@ def test_run_and_what_it_drives_load_no_jax():
         "import sys\n"
         f"sys.path[:0] = [{str(BENCH_DIR)!r}, {str(ROOT)!r}]\n"
         "import run, calibrate\n"
-        "from harness import cells, drivers, reference, scene, trace, work\n"
+        "from harness import cells, driving, reference, scene, trace, work\n"
+        "bench = cells.load_benchmark()\n"
+        "for w in bench['workloads']:\n"
+        "    cells.driver(cells.traffic(w['traffic'])['kind'])\n"
+        "    cells.reference(cells.config(bench, w['config']))\n"
         "import dnsplatter_torch.train.trainer, dnsplatter_torch.configs\n"
         "import dnsplatter_torch.eval.evaluator\n"
         "import dnsplatter_torch.models.dn_model\n"
-        "for m in cells.load_benchmark()['per_layer']:\n"
+        "for m in bench['per_layer']:\n"
         "    cells.reader(m['name'])\n"
         "print(' '.join(sorted({m.split('.')[0] for m in sys.modules})))\n")
     top = _loaded(code)
@@ -61,3 +68,19 @@ def test_reference_side_sources_import_no_program():
             for n in names:
                 assert n.split(".")[0] not in FORBIDDEN | {
                     "dnsplatter_torch"}, (rel, n)
+
+
+def _imported(rel: str) -> list:
+    out = []
+    for node in ast.walk(ast.parse((BENCH_DIR / rel).read_text())):
+        if isinstance(node, ast.Import):
+            out += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            out += [node.module] + [f"{node.module}.{a.name}"
+                                    for a in node.names]
+    return out
+
+
+def test_drivers_take_the_reference_the_configuration_names():
+    for rel in REFERENCE_BY_CONFIG:
+        assert "harness.reference" not in _imported(rel), rel

@@ -10,7 +10,7 @@ import sys
 
 import run as bench_run
 from harness import cells
-from harness.drivers import Outcome, judge
+from harness.driving import Outcome, judge
 
 from conftest import BENCH_DIR, ROOT
 
@@ -26,7 +26,7 @@ def _outcome(trace=None, bad=False):
 
 def test_untraced_line():
     bench = cells.load_benchmark()
-    line = bench_run.result_line(bench, "room_1m.train_densify", _outcome(),
+    line = bench_run.result_line(bench, "big_3m.train_steady", _outcome(),
                                  "NVIDIA H100 80GB HBM3", "700.00 W")
     assert list(line) == ["correct", "attempted", "failed", "metrics",
                           "device", "checks"]
@@ -45,7 +45,7 @@ def test_traced_line_and_a_failed_check():
              "idle_gaps": [["autograd_grad", 0.01]]}
     bench = cells.load_benchmark()
     layer = {"train.kernels_per_step": {"value": 2165.0, "unit": "kernels"}}
-    line = bench_run.result_line(bench, "room_1m.train_densify",
+    line = bench_run.result_line(bench, "big_3m.train_steady",
                                  _outcome(trace, bad=True), "card", "w",
                                  layer)
     assert list(line)[-2:] == ["breakdown", "checks"]

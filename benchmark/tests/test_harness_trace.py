@@ -38,7 +38,7 @@ def test_spans_busy_and_gaps():
         _ev("get_outputs", 50, 100, cuda=True),
     ]
     prof = types.SimpleNamespace(events=lambda: evs)
-    r = T.reduce_trace(prof, wall_s=400e-6)
+    r = T.reduce_trace(prof, 400e-6, T.LABELS)
     sp = r["span_device_s"]
     assert sp["get_outputs"] == pytest.approx(50e-6)
     assert sp["forward_tiles"] == pytest.approx(30e-6)
@@ -51,7 +51,38 @@ def test_spans_busy_and_gaps():
     assert r["idle_gaps"][0] == ["autograd_grad", pytest.approx(100e-6)]
 
 
+def test_a_driver_passes_its_own_span_table():
+    """A label outside the driver's table is no span: its range neither
+    takes device time nor names a gap, and the gap falls to the
+    enclosing span or outside every span."""
+    evs = [
+        _ev("infer", 0, 100), _ev("get_outputs", 20, 80),
+        _ev("cudaLaunchKernel", 30, 32, cid=1),
+        _ev("cudaLaunchKernel", 90, 92, cid=2),
+        _ev("k_a", 40, 85, cuda=True, cid=1),
+        _ev("k_b", 95, 99, cuda=True, cid=2),
+    ]
+    prof = types.SimpleNamespace(events=lambda: evs)
+    r = T.reduce_trace(prof, 100e-6, ("infer",))
+    assert r["span_device_s"] == {"infer": pytest.approx(49e-6)}
+    assert r["idle_gaps"] == [["infer", pytest.approx(10e-6)]]
+    r = T.reduce_trace(prof, 100e-6, T.LABELS)
+    assert r["span_device_s"] == {"get_outputs": pytest.approx(45e-6)}
+    assert r["idle_gaps"] == [["outside_spans", pytest.approx(10e-6)]]
+
+
+def test_spans_installed_wraps_the_table_it_is_given():
+    import math
+
+    table = (("math", "sqrt", "sqrt_span"),)
+    orig = math.sqrt
+    with T.spans_installed(table):
+        assert math.sqrt is not orig
+        assert math.sqrt(4.0) == 2.0
+    assert math.sqrt is orig
+
+
 def test_no_device_activity_is_an_error():
     prof = types.SimpleNamespace(events=lambda: [_ev("get_outputs", 0, 1)])
     with pytest.raises(RuntimeError):
-        T.reduce_trace(prof, 1.0)
+        T.reduce_trace(prof, 1.0, T.LABELS)

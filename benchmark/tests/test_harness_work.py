@@ -124,12 +124,13 @@ def test_pair_counts_agree_with_binning():
     import sys
     sys.path.insert(0, str(__import__("conftest").BENCH_DIR))
     from conftest import tiny
-    from harness import drivers, scene as S
+    from harness import scene as S
+    from harness.driving import ref_cam
 
     cfg = tiny("dnsplatter_room_1m")
     sc = S.make_scene(cfg, 3, "cpu", with_targets=False)
     p = {f: sc.state[f] for f in R.FIELDS}
-    cams = [drivers.ref_cam(sc, i) for i in range(len(sc.c2ws))]
+    cams = [ref_cam(R, sc, i) for i in range(len(sc.c2ws))]
     counts = R.pair_counts(p, sc.state["alive"], cams)
     for cam, n in zip(cams, counts):
         scr = R.project(p, sc.state["alive"], cam, 0)
