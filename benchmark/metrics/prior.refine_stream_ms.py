@@ -1,0 +1,16 @@
+"""Stream time of the program's span `prior.refine` (one NRN iteration),
+summed over a frame's iterations, per frame of the profiled stretch
+(`utils/profiling.record()`). None where the program records no such
+span."""
+
+
+def read(ctx):
+    from dnsplatter_torch.utils import profiling
+
+    record = getattr(profiling, "record", None)
+    if record is None:
+        return None
+    s = record()["spans"].get("prior.refine")
+    if not s or s["stream_ms"] is None:
+        return None
+    return s["stream_ms"] / ctx["units"]

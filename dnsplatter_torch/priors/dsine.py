@@ -32,6 +32,7 @@ from torch import nn
 
 from dnsplatter_torch.priors.common import build, load_weights, strict_fp32
 from dnsplatter_torch.priors.efficientnet import EfficientNetB5
+from dnsplatter_torch.utils import profiling
 
 PS = 5  # NRN patch size
 NUM_ITER = 5
@@ -304,28 +305,34 @@ class DSINE(nn.Module):
         """img (B, 3, H, W) ImageNet-normalized, H and W multiples of 32;
         intrins (B, 3, 3) pixel intrinsics of that image (top-left (0, 0)
         convention; +0.5 is added here)."""
-        feats = self.encoder(img)
-        b, _, orig_h, orig_w = img.shape
-        intrins = intrins.clone()
-        intrins[:, 0, 2] += 0.5
-        intrins[:, 1, 2] += 0.5
-        uv_32 = _get_ray(intrins, orig_h // 32, orig_w // 32, orig_h, orig_w,
-                         True)
-        uv_16 = _get_ray(intrins, orig_h // 16, orig_w // 16, orig_h, orig_w,
-                         True)
-        uv_8 = _get_ray(intrins, orig_h // 8, orig_w // 8, orig_h, orig_w,
-                        True)
-        ray_8 = _get_ray(intrins, orig_h // 8, orig_w // 8, orig_h, orig_w)
+        with profiling.span("prior.encoder"):
+            feats = self.encoder(img)
+        with profiling.span("prior.decoder"):
+            b, _, orig_h, orig_w = img.shape
+            intrins = intrins.clone()
+            intrins[:, 0, 2] += 0.5
+            intrins[:, 1, 2] += 0.5
+            uv_32 = _get_ray(intrins, orig_h // 32, orig_w // 32, orig_h,
+                             orig_w, True)
+            uv_16 = _get_ray(intrins, orig_h // 16, orig_w // 16, orig_h,
+                             orig_w, True)
+            uv_8 = _get_ray(intrins, orig_h // 8, orig_w // 8, orig_h,
+                            orig_w, True)
+            ray_8 = _get_ray(intrins, orig_h // 8, orig_w // 8, orig_h,
+                             orig_w)
 
-        pred_norm, feat_map, h = self.decoder(feats, (uv_32, uv_16, uv_8))
-        pred_norm = _ray_relu(pred_norm, ray_8)
-        uv_b = uv_8.expand((b,) + uv_8.shape[1:])
-        feat_map = torch.cat([feat_map, uv_b], 1)
-        up_mask = self.up_prob_head(torch.cat([h, uv_b], 1))
-        preds = [_normalize(_convex_upsample(pred_norm, up_mask, DOWN))]
+            pred_norm, feat_map, h = self.decoder(feats, (uv_32, uv_16, uv_8))
+            pred_norm = _ray_relu(pred_norm, ray_8)
+            uv_b = uv_8.expand((b,) + uv_8.shape[1:])
+            feat_map = torch.cat([feat_map, uv_b], 1)
+            up_mask = self.up_prob_head(torch.cat([h, uv_b], 1))
+            preds = [_normalize(_convex_upsample(pred_norm, up_mask, DOWN))]
         for _ in range(num_iter):
-            h, pred_norm, up = self.refine(h, feat_map, pred_norm, intrins,
-                                           orig_h, orig_w, uv_8, ray_8)
+            with profiling.span("prior.refine"):
+                h, pred_norm, up = self.refine(h, feat_map, pred_norm,
+                                               intrins, orig_h, orig_w, uv_8,
+                                               ray_8)
+            profiling.count("prior.refine_iters")
             preds.append(up)
         return preds
 
@@ -370,22 +377,33 @@ def intrins_from_fov(fov_deg: float, h: int, w: int) -> np.ndarray:
 def predict_normals(model: DSINE, rgb_u8: np.ndarray,
                     K: np.ndarray | None = None) -> np.ndarray:
     """uint8 (H, W, 3) -> (H, W, 3) unit camera-space normals: pad to /32,
-    ImageNet-normalize, run on the model's device, crop."""
-    h, w = rgb_u8.shape[:2]
-    img = rgb_u8.astype(np.float32) / 255.0
-    left, right, top, bottom = pad_input(h, w)
-    img = np.pad(img, ((top, bottom), (left, right), (0, 0)))
-    img = (img - IMAGENET_MEAN) / IMAGENET_STD
-    dev = next(model.parameters()).device
-    x = torch.as_tensor(np.ascontiguousarray(img.transpose(2, 0, 1)[None]),
-                        device=dev)
-    K = intrins_from_fov(60.0, h, w) if K is None else K.astype(np.float32)
-    K = K.copy()
-    K[0, 2] += left
-    K[1, 2] += top
-    out = dsine_forward(model, x, torch.as_tensor(K[None], device=dev))[-1]
-    out = out[0].permute(1, 2, 0).cpu().numpy()
-    return out[top:top + h, left:left + w]
+    ImageNet-normalize, run on the model's device, crop. Recorded as the
+    span `prior.frame` around `prior.prepare` (the host pre-pass and the
+    upload), the network's spans and `prior.readback` (the crop and the
+    copy to the host)."""
+    with profiling.span("prior.frame"):
+        with profiling.span("prior.prepare"):
+            h, w = rgb_u8.shape[:2]
+            img = rgb_u8.astype(np.float32) / 255.0
+            left, right, top, bottom = pad_input(h, w)
+            img = np.pad(img, ((top, bottom), (left, right), (0, 0)))
+            img = (img - IMAGENET_MEAN) / IMAGENET_STD
+            dev = next(model.parameters()).device
+            x = torch.as_tensor(
+                np.ascontiguousarray(img.transpose(2, 0, 1)[None]),
+                device=dev)
+            K = (intrins_from_fov(60.0, h, w) if K is None
+                 else K.astype(np.float32))
+            K = K.copy()
+            K[0, 2] += left
+            K[1, 2] += top
+            Kt = torch.as_tensor(K[None], device=dev)
+        profiling.count("prior.frames")
+        profiling.count("prior.pixels", x.shape[2] * x.shape[3])
+        out = dsine_forward(model, x, Kt)[-1]
+        with profiling.span("prior.readback"):
+            out = out[0].permute(1, 2, 0).cpu().numpy()
+            return out[top:top + h, left:left + w]
 
 
 def load_params(path) -> dict:

@@ -67,6 +67,14 @@ SPANS = {
     "raster.reduce": "the backward's sort and reduction to per-Gaussian "
                      "gradients",
     "raster.live_slots": "rasterize.live_pair_slots",
+    "prior.frame": "dsine.predict_normals: one frame",
+    "prior.prepare": "the frame's host pad, ImageNet normalisation and "
+                     "upload",
+    "prior.encoder": "DSINE's EfficientNet-B5 encoder",
+    "prior.decoder": "DSINE's decoder, the first ray-ReLU and the first "
+                     "convex upsample",
+    "prior.refine": "one NRN refinement iteration (DSINE.refine)",
+    "prior.readback": "the normal map's crop and copy to the host",
 }
 
 # Counter name: what it counts, where.
@@ -81,6 +89,9 @@ COUNTERS = {
     "bwd.live_slots": "pair slots the backward's reduction by key read",
     "sync.<site>": "blocking device-to-host reads, by site (host_read)",
     "launch.<wrapper>": "rasterize_cuda.LAUNCHES' increase while recording",
+    "prior.frames": "predict_normals' frames",
+    "prior.pixels": "padded pixels those frames put through the network",
+    "prior.refine_iters": "NRN refinement iterations run",
 }
 
 # Spans kept unresolved before the oldest are folded into the sums.
