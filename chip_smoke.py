@@ -77,7 +77,13 @@ Phases (any failure raises and the script exits non-zero):
    version (`eval_sh` on the concatenated coefficients) within 1e-5 of each
    array's largest magnitude, 1e-4 for the direction's gradient (see
    `check_sh_colors`); in phase 4 each trained step launches the backward
-   once and the forward at least once. Times: device time per call, from a batch of calls queued back to back
+   once and the forward at least once. The screen-space pair
+   (`project_screen`, `project_screen_backward`) at the same row counts, the
+   benchmark configurations' frames: radii, radii_xy and valid equal to the
+   plain version, the other outputs within 1e-6 and the five gradients
+   through autograd within 1e-5 of each array's largest magnitude (see
+   `check_project_screen`); in phase 4 each trained step launches its
+   backward once and its forward at least once. Times: device time per call, from a batch of calls queued back to back
    behind a spin kernel between one pair of CUDA events (median of three
    batches), so the host's per-call cost is not in it. The bound is the
    larger of the bytes the function must move / 3.35 TB/s and its FP32
@@ -279,6 +285,15 @@ SH_ROWS = (("room_1m", 1_253_376), ("big_3m", 3_751_936))
 SH_TOL = 1e-5  # colours, d_features_dc, d_features_rest: x the array's max
 SH_DIRS_TOL = 1e-4  # d_dirs: x the array's max (cancelling basis terms)
 SH_BYTES_PER_ROW = 216 + 420  # forward + backward at degree 3, K = 16
+# the screen-space pair at the benchmark configurations' capacities and
+# frames (width, height, focal)
+PS_ROWS = (("room_1m", 1_253_376, 1024, 576, 700.0),
+           ("big_3m", 3_751_936, 1600, 1200, 1093.75))
+PS_TOL = 1e-6  # the forward's values: x the array's max
+PS_GRAD_TOL = 1e-5  # the five gradients: x the array's max
+# forward: 60 B read, 69 B written; backward: 13 gradient words, the four
+# parameter rows again, five gradient rows written
+PS_BYTES_PER_ROW = (60 + 69) + (52 + 44 + 56)
 
 
 def log(msg: str) -> None:
@@ -1187,6 +1202,7 @@ STEP_KERNELS = ("expand_segments", "expand_segments_stream", "forward_tiles",
 REDUCERS = ("reduce_segments_bykey", "reduce_segments_packed",
             "reduce_segments_packed_multi", "reduce_segments")
 SH_KERNELS = ("sh_colors", "sh_colors_backward")
+PS_KERNELS = ("project_screen", "project_screen_backward")
 
 
 def expected_step_launches(steps: int, capacity: int, reducer: str) -> dict:
@@ -1269,6 +1285,100 @@ def check_sh_colors(rc, n: int, scene: str, gpu: str) -> dict:
             "bytes": nbytes, "gpu": gpu}
 
 
+def project_inputs(n: int, dev, seed: int, width: int, height: int,
+                   focal: float):
+    """A camera, the screen-space entry's five differentiable inputs (means,
+    quats, log-scales, opacity logits, colors), alive, and the incoming
+    gradients of means2d, conics, opacities and features as strided columns
+    of one (n, 15) array, as the rasterizer's backward hands them over: n
+    random Gaussians around a view of a room-sized box, on the card."""
+    import numpy as np
+    import torch
+
+    from dnsplatter_torch.data.synthetic import make_gt_gaussians
+    from dnsplatter_torch.ops.camera import Camera, look_at
+
+    gt, alive = make_gt_gaussians(np.random.default_rng(seed), n, extent=3.0,
+                                  scale_shift=-1.0, device=dev)
+    c2w = look_at((0.5, 1.4, 4.5), (0.0, 0.3, 0.0), device=dev)
+    cam = Camera.create(focal, focal, width / 2, height / 2, c2w, width,
+                        height, device=dev)
+    g = torch.Generator(dev).manual_seed(seed)
+    colors = torch.rand(n, 3, device=dev, generator=g)
+    slab = torch.randn(n, 15, device=dev, generator=g)
+    gin = (slab[:, 0:2], slab[:, 2:5], slab[:, 5], slab[:, 6:13])
+    return cam, (gt.means, gt.quats, gt.scales, gt.opacities, colors), \
+        alive, gin
+
+
+def check_project_screen(rc, n: int, scene: str, width: int, height: int,
+                         focal: float, gpu: str) -> dict:
+    """The screen-space pair (`project_screen` forward,
+    `project_screen_backward`) at n rows and the configuration's frame,
+    against the plain version through autograd: radii, radii_xy and valid
+    equal, the other outputs within PS_TOL and the five gradients within
+    PS_GRAD_TOL of each array's largest magnitude. Times each kernel, the
+    plain version (forward and autograd's backward) and the bound:
+    PS_BYTES_PER_ROW bytes a row / 3.35 TB/s."""
+    import torch
+
+    cam, arrays, alive, gin = project_inputs(n, torch.device("cuda"), n,
+                                             width, height, focal)
+    view = cam.viewmat()
+    args = (alive, view, cam.c2w, cam.fx, cam.fy, cam.cx, cam.cy, width,
+            height)
+    lk = [t.clone().requires_grad_(True) for t in arrays]
+    lp = [t.clone().requires_grad_(True) for t in arrays]
+    diff = (0, 1, 3, 4)  # means2d, conics, opacities, features
+    got = rc.project_screen(*lk, *args)
+    gk = torch.autograd.grad([got[i] for i in diff], lk, gin)
+    want = rc.project_screen_plain(*lp, *args)
+    gp = torch.autograd.grad([want[i] for i in diff], lp, gin)
+    torch.cuda.synchronize()
+    got, want = [t.detach() for t in got], [t.detach() for t in want]
+    errs = {}
+    names = ("means2d", "conics", "depths", "opacities", "features")
+    for name, a, b in zip(names, got, want):
+        errs[name] = float((a - b).abs().max() / b.abs().max())
+    for name, a, b in zip(("d_means", "d_quats", "d_scales", "d_opacities",
+                           "d_colors"), gk, gp):
+        errs[name] = float((a - b).abs().max() / b.abs().max())
+    for name, err in errs.items():
+        tol = PS_GRAD_TOL if name.startswith("d_") else PS_TOL
+        if not err <= tol:
+            raise AssertionError(f"project_screen ({scene}): {name} differs "
+                                 f"by {err} of its largest value, over {tol}")
+    for name, a, b in zip(("valid", "radii_xy", "radii"), got[5:], want[5:]):
+        if not torch.equal(a, b):
+            raise AssertionError(f"project_screen ({scene}): {name} differs "
+                                 f"in {int((a != b).sum())} elements")
+    visible = int(got[5].sum())
+    del got, gk, want, gp
+    means, quats, scales, opac = (t.contiguous() for t in arrays[:4])
+    colors = arrays[4]
+    with torch.no_grad():
+        fwd_ms = device_ms(lambda: rc.project_screen(
+            means, quats, scales, opac, colors, *args), 50)
+        bwd_ms = device_ms(lambda: rc.project_screen_backward(
+            False, width, height, means, quats, scales, opac, view, cam.c2w,
+            cam.fx, cam.fy, cam.cx, cam.cy, gin[0], gin[1], None, gin[2],
+            gin[3]), 50)
+
+    def plain_pair():
+        outs = rc.project_screen_plain(*lp, *args)
+        torch.autograd.grad([outs[i] for i in diff], lp, gin)
+
+    plain_ms = device_ms(plain_pair, 5)
+    nbytes = n * PS_BYTES_PER_ROW
+    return {"scene": scene, "kernel": "project_screen", "rows": n,
+            "visible": visible, "max_rel_err": errs,
+            "max_abs_err": max(errs.values()), "ms": fwd_ms + bwd_ms,
+            "forward_ms": fwd_ms, "backward_ms": bwd_ms,
+            "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bytes": nbytes, "gpu": gpu}
+
+
 def run_training(label, inputs, dev, gpu, steps, expect_refinement,
                  train_cfg=None, reducer="reduce_segments_bykey"):
     """Train the scene through `Trainer.train` and check the run; then hold
@@ -1302,7 +1412,8 @@ def run_training(label, inputs, dev, gpu, steps, expect_refinement,
             return trainer.train(1, log_every=1 << 30)[-1]["loss"]
 
     ms, losses, launches = timed_steps(one_step, TRAIN_WARMUP, steps,
-                                       STEP_KERNELS + REDUCERS + SH_KERNELS)
+                                       STEP_KERNELS + REDUCERS + SH_KERNELS
+                                       + PS_KERNELS)
     want = expected_step_launches(steps, trainer.params.capacity, reducer)
     if {k: launches[k] for k in want} != want:
         raise AssertionError(f"[{label}] launches {launches}, "
@@ -1312,6 +1423,11 @@ def run_training(label, inputs, dev, gpu, steps, expect_refinement,
             or launches["sh_colors"] < steps):
         raise AssertionError(f"[{label}] SH launches {launches}, expected "
                              f"{steps} backward and at least as many forward")
+    if (launches["project_screen_backward"] != steps
+            or launches["project_screen"] < steps):
+        raise AssertionError(f"[{label}] screen-space launches {launches}, "
+                             f"expected {steps} backward and at least as "
+                             "many forward")
     for f in FIELDS:
         if not bool(torch.isfinite(getattr(trainer.params, f)).all()):
             raise AssertionError(f"[{label}] {f} is not finite")
@@ -3637,6 +3753,11 @@ def main() -> int:
         keep({"phase": "6", "sh_colors_rows": rows}, [
             check_sh_colors(rc, rows, scene, gpu)], {})
         torch.cuda.empty_cache()
+    for scene, rows, width, height, focal in PS_ROWS:
+        keep({"phase": "6", "project_screen_rows": rows}, [
+            check_project_screen(rc, rows, scene, width, height, focal,
+                                 gpu)], {})
+        torch.cuda.empty_cache()
     # -- the file-backed MuSHRoom path --
     with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=REPO) as tmp:
         keep(*run_mushroom(dev, gpu, Path(tmp)))
@@ -3682,6 +3803,9 @@ def main() -> int:
         ("cumsum_lanes_i32", "2p24", "cumsum_lanes_i32.cu", f"{pallas}:117"),
         ("sh_colors", "big_3m", "sh_colors.cu",
          "none: dnsplatter_tpu/ops/sh.py eval_sh, left to XLA"),
+        ("project_screen", "big_3m", "project_screen.cu",
+         "none: dnsplatter_tpu/ops/projection.py project_gaussians and "
+         "normals.py, left to XLA"),
     )
     kernels = []
     for kname, scene, source, replaces in kinds:

@@ -9,9 +9,12 @@ wrapper's kernel launches: it goes up by one where the wrapper launches
 and nowhere else, and `LAUNCHES.clear()` sets every count to 0.
 
 The plain versions accept tensors on any device, so a check on the card can
-hold each kernel against them on the same inputs. `sh_colors`, last, has no
-Pallas function (the JAX package leaves `eval_sh` to XLA): it keeps the
-contract of `ops/sh.eval_sh` on the concatenated coefficients.
+hold each kernel against them on the same inputs. `sh_colors` and
+`project_screen`, last, have no Pallas function (the JAX package leaves
+`eval_sh`, the projection and the normals to XLA): they keep the contracts
+of `ops/sh.eval_sh` on the concatenated coefficients and of
+`project_screen_plain`, which is the per-Gaussian part of
+`ops/render.screen_space` after the colours.
 """
 
 from __future__ import annotations
@@ -24,6 +27,11 @@ from typing import Dict, Tuple
 import torch
 
 from dnsplatter_torch.ops import kernel_build
+from dnsplatter_torch.ops.normals import (
+    per_gaussian_normals,
+    world_to_camera_normals,
+)
+from dnsplatter_torch.ops.projection import project_gaussians
 from dnsplatter_torch.ops.sh import eval_sh
 
 ALPHA_THRESHOLD = 1.0 / 255.0
@@ -82,6 +90,13 @@ _ENTRIES = {
     "sh_colors_backward": ("sh_colors", "dns_sh_colors_backward",
                            [_I, _VP, _VP, _VP, _VP, ctypes.c_longlong, _I,
                             _VP, _VP, _VP, _VP]),
+    "project_screen": ("project_screen", "dns_project_screen",
+                       [_VP] * 12 + [_I, _I, _VP, _I, ctypes.c_longlong]
+                       + [_VP] * 9),
+    "project_screen_backward": ("project_screen",
+                                "dns_project_screen_backward",
+                                [_VP] * 10 + [_I, _I, _I, ctypes.c_longlong]
+                                + [_VP] * 15),
 }
 _FNS: Dict[str, ctypes._CFuncPtr] = {}
 
@@ -947,3 +962,173 @@ def sh_colors(degree: int, features_dc: torch.Tensor,
     _sh_check(degree, features_dc, features_rest, dirs)
     return _ShColorsFn.apply(degree, features_dc.contiguous(),
                              features_rest.contiguous(), dirs.contiguous())
+
+
+# ---------------------------------------------------------------------------
+# project_screen (no Pallas counterpart: the JAX package leaves the
+# projection and the per-Gaussian normals to XLA)
+# ---------------------------------------------------------------------------
+
+
+def project_screen_plain(means, quats, scales, opacities, colors, alive,
+                         viewmat, c2w, fx, fy, cx, cy, width: int,
+                         height: int, rasterize_mode: str = "classic",
+                         near_plane: float = 0.01, far_plane: float = 1e10):
+    """Plain PyTorch version of `project_screen` (any device): the
+    projection of exp(scales) with sigmoid(opacities), the per-Gaussian
+    normals in the camera frame and the feature rows, as `screen_space`
+    computed them before the entry existed."""
+    opac_raw = torch.sigmoid(opacities)
+    proj = project_gaussians(means, quats, torch.exp(scales), viewmat, fx, fy,
+                             cx, cy, width, height, near_plane=near_plane,
+                             far_plane=far_plane, opacities=opac_raw)
+    valid = proj.valid & (alive > 0.5)
+    opac = opac_raw
+    if rasterize_mode == "antialiased":
+        opac = opac * proj.compensations
+    n_world = per_gaussian_normals(scales, quats, means, c2w[:3, 3])
+    n_cam = world_to_camera_normals(n_world, c2w)
+    feats = torch.cat([colors, n_cam, proj.depths[:, None]], dim=-1)
+    return (proj.means2d, proj.conics, proj.depths, opac, feats, valid,
+            proj.radii_xy, proj.radii)
+
+
+def _project_check(means, quats, scales, opacities, colors, alive, viewmat,
+                   c2w, intrinsics, width: int, height: int) -> None:
+    n = means.shape[0] if means.ndim == 2 else -1
+    shapes = (("means", means, (n, 3)), ("quats", quats, (n, 4)),
+              ("scales", scales, (n, 3)), ("opacities", opacities, (n,)),
+              ("colors", colors, (n, 3)), ("alive", alive, (n,)),
+              ("viewmat", viewmat, (4, 4)), ("c2w", c2w, (4, 4)),
+              *((name, t, ()) for name, t in zip(("fx", "fy", "cx", "cy"),
+                                                 intrinsics)))
+    for name, t, shape in shapes:
+        if not isinstance(t, torch.Tensor):
+            raise ValueError(f"project_screen: {name} must be a tensor")
+        if t.dtype != torch.float32 or t.device != means.device:
+            raise ValueError(f"project_screen: {name} must be float32 on "
+                             "means' device")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"project_screen: {name} must be {shape}, got "
+                             f"{tuple(t.shape)}")
+    if width <= 0 or height <= 0:
+        raise ValueError(f"project_screen: image {width} x {height}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in intrinsics):
+        raise ValueError("project_screen: the intrinsics take no gradient")
+
+
+def _strides(t, cols: int):
+    """(pointer, row stride, column stride) of an incoming gradient; a
+    missing one reads as zeros."""
+    if t is None:
+        return None, 0, 0
+    return t.data_ptr(), t.stride(0), t.stride(1) if cols > 1 else 0
+
+
+def project_screen_backward(antialiased: bool, width: int, height: int,
+                            means, quats, scales, opacities, viewmat, c2w,
+                            fx, fy, cx, cy, g_means2d, g_conics, g_depths,
+                            g_opac, g_features, needs=(True,) * 5,
+                            camera: bool = False):
+    """The gradients of `project_screen` for those of its five
+    differentiable outputs (None: zero; any strides, read where they lie):
+    (d_means, d_quats, d_scales, d_opacities, d_colors), each written once
+    by one kernel, None where `needs` says so; with `camera`, then d_viewmat
+    and d_c2w (4, 4). Contiguous card inputs only."""
+    n = means.shape[0]
+    grads = [_strides(g_means2d, 2), _strides(g_conics, 3),
+             _strides(g_depths, 1), _strides(g_opac, 1),
+             _strides(g_features, 7)]
+    strides = (ctypes.c_longlong * 8)(
+        grads[0][1], grads[0][2], grads[1][1], grads[1][2], grads[2][1],
+        grads[3][1], grads[4][1], grads[4][2])
+    outs = [means.new_empty(shape) if need else None
+            for shape, need in zip(((n, 3), (n, 4), (n, 3), (n,), (n, 3)),
+                                   needs)]
+    cams = (None, None, None)
+    if camera:
+        # d_viewmat, d_c2w and a partial row of 21 sums a CTA of 128 rows
+        cams = (viewmat.new_empty(4, 4), c2w.new_empty(4, 4),
+                means.new_empty(max(1, -(-n // 128)), 21))
+    _check_rc(_entry("project_screen_backward")(
+        means.data_ptr(), quats.data_ptr(), scales.data_ptr(),
+        opacities.data_ptr(), viewmat.data_ptr(), c2w.data_ptr(),
+        fx.data_ptr(), fy.data_ptr(), cx.data_ptr(), cy.data_ptr(), width,
+        height, int(antialiased), n, *(g[0] for g in grads), strides,
+        *(None if t is None else t.data_ptr() for t in outs + list(cams)),
+        _stream()), "project_screen_backward")
+    _count("project_screen_backward")
+    return tuple(outs) + cams[:2]
+
+
+class _ProjectScreenFn(torch.autograd.Function):
+    """The kernel pair of csrc/project_screen.cu: the screen-space rows
+    forward, the gradients of the Gaussians (and of the camera, where asked
+    for) backward."""
+
+    @staticmethod
+    def forward(ctx, antialiased, width, height, near_plane, far_plane,
+                means, quats, scales, opacities, colors, alive, viewmat, c2w,
+                fx, fy, cx, cy):
+        n = means.shape[0]
+        ctx.meta = (antialiased, width, height)
+        ctx.save_for_backward(means, quats, scales, opacities, viewmat, c2w,
+                              fx, fy, cx, cy)
+        ctx.set_materialize_grads(False)
+        new = means.new_empty
+        outs = (new(n, 2), new(n, 3), new(n), new(n), new(n, 7),
+                torch.empty(n, dtype=torch.bool, device=means.device),
+                new(n, 2), new(n))
+        _check_rc(_entry("project_screen")(
+            means.data_ptr(), quats.data_ptr(), scales.data_ptr(),
+            opacities.data_ptr(), colors.data_ptr(), alive.data_ptr(),
+            viewmat.data_ptr(), c2w.data_ptr(), fx.data_ptr(), fy.data_ptr(),
+            cx.data_ptr(), cy.data_ptr(), width, height,
+            (ctypes.c_float * 2)(near_plane, far_plane), int(antialiased), n,
+            *(t.data_ptr() for t in outs), _stream()), "project_screen")
+        _count("project_screen")
+        ctx.mark_non_differentiable(*outs[5:])
+        return outs
+
+    @staticmethod
+    def backward(ctx, g_means2d, g_conics, g_depths, g_opac, g_features,
+                 *_):
+        needs = ctx.needs_input_grad
+        grads = project_screen_backward(
+            *ctx.meta, *ctx.saved_tensors, g_means2d, g_conics, g_depths,
+            g_opac, g_features, needs[5:10], needs[11] or needs[12])
+        return (None,) * 5 + grads[:5] + (
+            None, grads[5] if needs[11] else None,
+            grads[6] if needs[12] else None) + (None,) * 4
+
+
+def project_screen(means, quats, scales, opacities, colors, alive, viewmat,
+                   c2w, fx, fy, cx, cy, width: int, height: int,
+                   rasterize_mode: str = "classic", near_plane: float = 0.01,
+                   far_plane: float = 1e10):
+    """The screen-space rows of N Gaussians in one camera.
+
+    means (N, 3), quats (N, 4) wxyz, scales (N, 3) log, opacities (N,)
+    logits, colors (N, 3) (the SH colours), alive (N,) 0 / 1; viewmat and c2w
+    (4, 4), fx, fy, cx, cy 0-d. Returns (means2d (N, 2), conics (N, 3),
+    depths (N,), opacities (N,) post-sigmoid, times the compensation under
+    "antialiased", features (N, 7) = [colors, camera-frame normal, depth],
+    valid (N,) bool (in the frustum and alive), radii_xy (N, 2), radii
+    (N,)), as `project_screen_plain` computes them; differentiable in the
+    Gaussians' inputs and in viewmat and c2w. On the card one kernel
+    computes every output and one the gradients (`project_screen`,
+    `project_screen_backward`); valid, radii_xy and radii carry no gradient.
+    """
+    if not _route(means, "project_screen"):
+        return project_screen_plain(
+            means, quats, scales, opacities, colors, alive, viewmat, c2w, fx,
+            fy, cx, cy, width, height, rasterize_mode, near_plane, far_plane)
+    intrinsics = (fx, fy, cx, cy)
+    _project_check(means, quats, scales, opacities, colors, alive, viewmat,
+                   c2w, intrinsics, width, height)
+    return _ProjectScreenFn.apply(
+        rasterize_mode == "antialiased", int(width), int(height),
+        float(near_plane), float(far_plane), means.contiguous(),
+        quats.contiguous(), scales.contiguous(), opacities.contiguous(),
+        colors.contiguous(), alive.contiguous(), viewmat.contiguous(),
+        c2w.contiguous(), *intrinsics)

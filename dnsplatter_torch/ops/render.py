@@ -16,14 +16,9 @@ import torch
 
 from dnsplatter_torch.models.gaussians import GaussianParams
 from dnsplatter_torch.ops.camera import Camera
-from dnsplatter_torch.ops.normals import (
-    per_gaussian_normals,
-    surface_normal_output,
-    world_to_camera_normals,
-)
-from dnsplatter_torch.ops.projection import project_gaussians
+from dnsplatter_torch.ops.normals import surface_normal_output
 from dnsplatter_torch.ops.rasterize import RasterizeConfig, rasterize
-from dnsplatter_torch.ops.rasterize_cuda import sh_colors
+from dnsplatter_torch.ops.rasterize_cuda import project_screen, sh_colors
 from dnsplatter_torch.utils import profiling
 
 
@@ -73,17 +68,20 @@ def screen_space(
 ) -> ScreenSpace:
     """Projection, SH colours and per-Gaussian normals: everything of
     `render` that is per Gaussian, so a sharded caller can run it on its own
-    rows. Counts the rows computed and the visible ones (`project.*`)."""
+    rows. Counts the rows computed and the visible ones (`project.*`). On
+    the card two kernel pairs do the work: the SH colours (`sh_colors`) and
+    everything else (`project_screen`)."""
     with profiling.span("render.screen"):
-        viewmat = camera.viewmat()
-        opac_raw = torch.sigmoid(params.opacities)
-        proj = project_gaussians(
-            params.means, params.quats, torch.exp(params.scales), viewmat,
-            camera.fx, camera.fy, camera.cx, camera.cy, camera.width,
-            camera.height, near_plane=near_plane, far_plane=far_plane,
-            opacities=opac_raw,
-        )
-        valid = proj.valid & (alive > 0.5)
+        cam_pos = camera.position()
+        colors = sh_colors(sh_degree_to_use, params.features_dc,
+                           params.features_rest,
+                           params.means - cam_pos[None, :])
+        (means2d, conics, depths, opac, feats, valid, radii_xy,
+         radii) = project_screen(
+            params.means, params.quats, params.scales, params.opacities,
+            colors, alive, camera.viewmat(), camera.c2w, camera.fx,
+            camera.fy, camera.cx, camera.cy, camera.width, camera.height,
+            rasterize_mode, near_plane, far_plane)
         if crop_box is not None:
             lo, hi = crop_box
             inside = torch.all(
@@ -93,22 +91,9 @@ def screen_space(
         if profiling.enabled():
             profiling.count("project.rows", valid.shape[0])
             profiling.count("project.visible", valid.sum())
-
-        opac = opac_raw
-        if rasterize_mode == "antialiased":
-            opac = opac * proj.compensations
-
-        cam_pos = camera.position()
-        colors = sh_colors(sh_degree_to_use, params.features_dc,
-                           params.features_rest,
-                           params.means - cam_pos[None, :])
-        n_world = per_gaussian_normals(params.scales, params.quats,
-                                       params.means, cam_pos)
-        n_cam = world_to_camera_normals(n_world, camera.c2w)
-        feats = torch.cat([colors, n_cam, proj.depths[:, None]], dim=-1)
-    return ScreenSpace(means2d=proj.means2d, conics=proj.conics,
-                       depths=proj.depths, opacities=opac, features=feats,
-                       valid=valid, radii_xy=proj.radii_xy, radii=proj.radii)
+    return ScreenSpace(means2d=means2d, conics=conics, depths=depths,
+                       opacities=opac, features=feats, valid=valid,
+                       radii_xy=radii_xy, radii=radii)
 
 
 def finish(img: torch.Tensor, alpha: torch.Tensor, camera: Camera,

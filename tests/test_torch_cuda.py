@@ -27,6 +27,16 @@ coefficient rows past the active degree exactly zero. Random rows are kept
 1e-3 or more from the colour clamp so that rounding cannot put the two
 sides of one row on different sides of it; rows placed exactly on it must
 agree (a tie passes the gradient).
+project_screen (the kernel pair against `project_screen_plain`, run by
+torch on the card, through autograd): radii, radii_xy and valid equal (the
+forward rounds as torch's ops round, see csrc/project_screen.cu); means2d,
+conics, depths, opacities and features within 1e-6 of each array's largest
+magnitude (bit-equal with torch 2.11 on an H100; the bound leaves room for
+another build's exp / log); the gradients of means, quats, scales,
+opacities and colors within 1e-5 of each array's largest magnitude (the
+backward's own order of operations: about 100 float32 ulps of the largest
+term); the camera's (viewmat and c2w, summed over every row) within 1e-4 of
+the largest.
 """
 
 from unittest import mock
@@ -1221,3 +1231,233 @@ def test_sh_colors_launches_once_a_step_and_once_a_frame(dev):
                     training=False)
     torch.cuda.synchronize()
     assert [rc.LAUNCHES[k] for k in names] == [1, 0]
+
+
+# ---------------------------------------------------------------------------
+# project_screen
+# ---------------------------------------------------------------------------
+
+# room_1m's state capacity and frame
+# (benchmark/configs/dnsplatter_room_1m.json)
+PS_ROWS, PS_WIDTH, PS_HEIGHT, PS_FOCAL = 1_253_376, 1024, 576, 700.0
+PS_TOL = 1e-6  # forward values: x the array's max
+PS_GRAD_TOL = 1e-5  # the Gaussians' gradients: x the array's max
+PS_CAM_TOL = 1e-4  # the camera's gradients: x the array's max
+
+
+def _ps_inputs(dev, n, seed, width=PS_WIDTH, height=PS_HEIGHT,
+               focal=PS_FOCAL):
+    """A camera and n rows on the card: random Gaussians around the view,
+    with special rows where n >= 64: log-scale ties (all three equal, and
+    the lower two), zero quaternions, dead rows (alive 0), rows behind the
+    camera, rows whose normal is perpendicular to the view direction, and
+    rows far outside the image."""
+    from dnsplatter_torch.ops.camera import Camera, look_at
+
+    rng = np.random.default_rng(seed)
+    gt, alive = make_gt_gaussians(rng, n, extent=3.0, scale_shift=-1.0,
+                                  device=dev)
+    eye = (0.5, 1.4, 4.5)
+    c2w = look_at(eye, (0.0, 0.3, 0.0), device=dev)
+    cam = Camera.create(focal, focal, width / 2, height / 2, c2w, width,
+                        height, device=dev)
+    means, quats = gt.means.clone(), gt.quats.clone()
+    scales = gt.scales.clone()
+    quats = quats * torch.as_tensor(
+        rng.uniform(0.5, 2.0, (n, 1)).astype(np.float32), device=dev)
+    alive = alive.clone()
+    if n >= 64:
+        scales[0:8] = scales[0:8, :1]
+        scales[8:16, 1] = scales[8:16, 0]
+        quats[16:24] = 0.0
+        alive[24:32] = 0.0
+        means[32:40] = torch.as_tensor(eye, device=dev) + 2.0  # behind
+        # identity quats, flattest axis z, seen along x: dots = 0
+        quats[40:48] = torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev)
+        scales[40:48] = torch.tensor([-3.0, -3.0, -5.0], device=dev)
+        means[40:48] = c2w[:3, 3] + torch.tensor([0.7, 0.0, 0.0], device=dev)
+        means[48:56] = torch.tensor([40.0, 0.3, 0.0], device=dev)
+    colors = torch.rand(n, 3, device=dev,
+                        generator=torch.Generator(dev).manual_seed(seed))
+    return cam, (means, quats, scales, gt.opacities.clone(), colors), alive
+
+
+def _ps_run(entry, cam, arrays, alive, mode, camera_grad, seed,
+            grads_of=("means2d", "conics", "depths", "opacities",
+                      "features")):
+    """The entry's outputs and the gradients of the five inputs (and of c2w
+    with `camera_grad`) for random incoming gradients, those of means2d,
+    conics, opacities and features as strided columns of one (N, 15) array
+    like the rasterizer's backward hands them over."""
+    import dataclasses
+
+    leaves = [t.clone().requires_grad_(True) for t in arrays]
+    c2w = cam.c2w.clone().requires_grad_(camera_grad)
+    cam = dataclasses.replace(cam, c2w=c2w)
+    outs = entry(*leaves, alive, cam.viewmat(), cam.c2w, cam.fx, cam.fy,
+                 cam.cx, cam.cy, cam.width, cam.height, mode)
+    n = arrays[0].shape[0]
+    g = torch.Generator(arrays[0].device).manual_seed(seed)
+    slab = torch.randn(n, 15, device=arrays[0].device, generator=g)
+    gin = {"means2d": slab[:, 0:2], "conics": slab[:, 2:5],
+           "opacities": slab[:, 5], "features": slab[:, 6:13],
+           "depths": slab[:, 13]}
+    named = dict(zip(("means2d", "conics", "depths", "opacities",
+                      "features"), outs[:5]))
+    inputs = leaves + ([c2w] if camera_grad else [])
+    grads = torch.autograd.grad([named[k] for k in grads_of],
+                                inputs, [gin[k] for k in grads_of],
+                                allow_unused=True)
+    grads = [torch.zeros_like(t) if d is None else d
+             for d, t in zip(grads, inputs)]
+    return [o.detach() for o in outs], grads
+
+
+def _ps_near(a, b, tol, what):
+    err = float((a - b).abs().max()) if a.numel() else 0.0
+    scale = float(b.abs().max()) if b.numel() else 0.0
+    assert err <= tol * scale, f"{what}: {err} > {tol} x {scale}"
+
+
+def _ps_check(dev, n, mode, camera_grad=False, seed=0, **kw):
+    cam, arrays, alive = _ps_inputs(dev, n, seed)
+    before = (rc.LAUNCHES["project_screen"],
+              rc.LAUNCHES["project_screen_backward"])
+    got, gk = _ps_run(rc.project_screen, cam, arrays, alive, mode,
+                      camera_grad, seed + 1, **kw)
+    assert (rc.LAUNCHES["project_screen"],
+            rc.LAUNCHES["project_screen_backward"]) == (before[0] + 1,
+                                                        before[1] + 1)
+    want, gp = _ps_run(rc.project_screen_plain, cam, arrays, alive, mode,
+                       camera_grad, seed + 1, **kw)
+    torch.cuda.synchronize()
+    names = ("means2d", "conics", "depths", "opacities", "features", "valid",
+             "radii_xy", "radii")
+    for name, a, b in zip(names, got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        if name in ("valid", "radii_xy", "radii"):
+            assert torch.equal(a, b), f"{name}: {int((a != b).sum())} differ"
+        else:
+            _ps_near(a, b, PS_TOL, name)
+    if n >= 1000:
+        assert int(got[5].sum()) > 0  # some rows are visible
+    for name, a, b in zip(("d_means", "d_quats", "d_scales", "d_opacities",
+                           "d_colors", "d_c2w"), gk, gp):
+        _ps_near(a, b, PS_CAM_TOL if name == "d_c2w" else PS_GRAD_TOL, name)
+    return got, gk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["classic", "antialiased"])
+def test_project_screen_kernel_matches_plain(dev, mode):
+    """At room_1m's capacity and frame."""
+    _ps_check(dev, PS_ROWS, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["classic", "antialiased"])
+def test_project_screen_kernel_camera_gradients(dev, mode):
+    """camera_optimizer_mode "SO3xR3": c2w takes a gradient, through
+    viewmat and through the normals' frame change."""
+    _ps_check(dev, PS_ROWS, mode, camera_grad=True, seed=5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 64, 127, 129, 4099])
+def test_project_screen_kernel_small_and_partial_grads(dev, n):
+    """Ragged last CTAs, and gradients of the features alone: the other
+    incoming gradients are None."""
+    _ps_check(dev, n, "classic", camera_grad=True, seed=n,
+              grads_of=("features",))
+
+
+@pytest.mark.cuda
+def test_project_screen_kernel_unaligned_quats(dev):
+    """Quaternion rows not on a 16-byte boundary take the word loads."""
+    cam, arrays, alive = _ps_inputs(dev, 1000, 3)
+    buf = torch.empty(1000 * 4 + 1, device=dev)
+    buf[1:] = arrays[1].reshape(-1)
+    quats = buf[1:].view(1000, 4)
+    assert quats.data_ptr() % 16 != 0
+    arrays = (arrays[0], quats, *arrays[2:])
+    got = rc.project_screen(*arrays, alive, cam.viewmat(), cam.c2w, cam.fx,
+                            cam.fy, cam.cx, cam.cy, cam.width, cam.height)
+    want = rc.project_screen_plain(*arrays, alive, cam.viewmat(), cam.c2w,
+                                   cam.fx, cam.fy, cam.cx, cam.cy, cam.width,
+                                   cam.height)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b) if a.dtype == torch.bool else \
+            float((a - b).abs().max()) <= PS_TOL * float(b.abs().max())
+
+
+@pytest.mark.cuda
+def test_project_screen_kernel_refuses_bad_inputs(dev):
+    cam, arrays, alive = _ps_inputs(dev, 64, 0, width=96, height=64)
+    means, quats, scales, opac, colors = arrays
+    cam_args = (cam.viewmat(), cam.c2w, cam.fx, cam.fy, cam.cx, cam.cy)
+    fx_cpu = cam.fx.cpu()
+    bad = {
+        "float64 means": ((means.double(), quats, scales, opac, colors,
+                           alive) + cam_args),
+        "quats shape": ((means, quats[:, :3], scales, opac, colors, alive)
+                        + cam_args),
+        "scales rows": ((means, quats, scales[:-1], opac, colors, alive)
+                        + cam_args),
+        "opacities shape": ((means, quats, scales, opac[:, None], colors,
+                             alive) + cam_args),
+        "colors on the CPU": ((means, quats, scales, opac, colors.cpu(),
+                               alive) + cam_args),
+        "viewmat shape": ((means, quats, scales, opac, colors, alive,
+                           cam_args[0][:3]) + cam_args[1:]),
+        "fx on the CPU": ((means, quats, scales, opac, colors, alive)
+                          + cam_args[:2] + (fx_cpu,) + cam_args[3:]),
+        "fx needs a gradient": ((means, quats, scales, opac, colors, alive)
+                                + cam_args[:2]
+                                + (cam.fx.clone().requires_grad_(True),)
+                                + cam_args[3:]),
+    }
+    before = dict(rc.LAUNCHES)
+    for what, args in bad.items():
+        with pytest.raises(ValueError, match="project_screen"):
+            rc.project_screen(*args, 96, 64)
+    assert dict(rc.LAUNCHES) == before
+
+
+@pytest.mark.cuda
+def test_project_screen_launches_once_a_step_and_once_a_frame(dev):
+    """One Trainer step at the benchmark's defaults (`TrainConfig()`)
+    launches the forward once and the backward once and reads the host as
+    before (the nonzero of the live slots, then the loss and the alive count
+    at the end of `train`); a served frame launches the forward alone."""
+    from dnsplatter_torch.data.synthetic import make_synthetic_scene
+    from dnsplatter_torch.models.dn_model import ModelConfig
+    from dnsplatter_torch.train.trainer import TrainConfig, Trainer
+    from dnsplatter_torch.utils import profiling
+
+    scene = make_synthetic_scene(seed=0, n_gaussians=300, n_cameras=4,
+                                 width=96, height=64, pair_capacity=1 << 14,
+                                 device=dev)
+    pts, cols = scene.seed_points(np.random.default_rng(1), noise=0.03)
+    tr = Trainer(scene, (pts, cols),
+                 model_cfg=ModelConfig(use_depth_loss=True, depth_lambda=0.2,
+                                       warmup_length=10_000),
+                 train_cfg=TrainConfig(), device=dev)
+    tr.train(2, log_every=1 << 30)
+    with profiling.recording():
+        tr.train(1, log_every=1 << 30)
+    c = profiling.record()["counters"]
+    assert c["launch.project_screen"] == 1
+    assert c["launch.project_screen_backward"] == 1
+    assert c["launch.sh_colors"] == 1
+    assert {k: v for k, v in c.items() if k.startswith("sync.")} == {
+        "sync.live_slots": 1, "sync.loss": 1, "sync.alive_count": 1}
+    from dnsplatter_torch.models.dn_model import get_outputs
+
+    cam, _ = scene.get(0)
+    rc.LAUNCHES.clear()
+    with torch.no_grad():
+        get_outputs(tr.params, tr.alive, cam, tr.model_cfg,
+                    tr._raster_cfg(cam), sh_degree=3, training=False)
+    torch.cuda.synchronize()
+    assert [rc.LAUNCHES[k] for k in ("project_screen",
+                                     "project_screen_backward")] == [1, 0]
