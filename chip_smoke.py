@@ -470,13 +470,12 @@ def make_scene(n, scale_shift, extent, seed, dev):
     return gt, served, alive, cams
 
 
-def bin_frame(params, alive, cam, cfg):
-    """The port's bin_gaussians on exactly the inputs `render` hands the
-    rasterizer for this camera."""
+def project_frame(params, alive, cam):
+    """(projection, validf, opacities): what `render` hands the rasterizer
+    for this camera."""
     import torch
 
     from dnsplatter_torch.ops.projection import project_gaussians
-    from dnsplatter_torch.ops.rasterize import bin_gaussians
 
     with torch.no_grad():
         opac = torch.sigmoid(params.opacities)
@@ -484,7 +483,18 @@ def bin_frame(params, alive, cam, cfg):
             params.means, params.quats, torch.exp(params.scales),
             cam.viewmat(), cam.fx, cam.fy, cam.cx, cam.cy, cam.width,
             cam.height, opacities=opac)
-        validf = (proj.valid & (alive > 0.5)).float()
+        return proj, (proj.valid & (alive > 0.5)).float(), opac
+
+
+def bin_frame(params, alive, cam, cfg):
+    """The port's bin_gaussians on exactly the inputs `render` hands the
+    rasterizer for this camera."""
+    import torch
+
+    from dnsplatter_torch.ops.rasterize import bin_gaussians
+
+    proj, validf, opac = project_frame(params, alive, cam)
+    with torch.no_grad():
         return bin_gaussians(cfg, proj.means2d, proj.depths, proj.radii_xy,
                              validf, conics=proj.conics, opacities=opac)
 
@@ -761,23 +771,27 @@ def run_big_scene(dev, gpu):
         if not math.isfinite(metrics[k]):
             raise AssertionError(f"[2p24] metric {k} = {metrics[k]}")
 
-    # the layout at this size: no overflow, every tile front to back
-    # (pair_gauss indexes the depth-sorted order, so it must ascend)
+    # the layout at this size: no overflow, and the depths of each tile's
+    # ids do not decrease
     totals, visible = [], []
     for cam in cams:
-        b = bin_frame(served, alive, cam, cfg)
+        proj, validf, opac = project_frame(served, alive, cam)
+        with torch.no_grad():
+            b = rz.bin_gaussians(cfg, proj.means2d, proj.depths,
+                                 proj.radii_xy, validf, conics=proj.conics,
+                                 opacities=opac)
         total = int(b.total_pairs)
         totals.append(total)
         visible.append(int((b.gauss_starts[1:] > b.gauss_starts[:-1]).sum()))
         if total > capacity or int(b.starts[-1]) != total:
             raise AssertionError(f"[2p24] {total} pairs overflow {capacity}")
-        pg = b.pair_gauss[:total].long()
+        d = proj.depths[b.pair_orig[:total].long()]
         slot = torch.arange(1, total, device=dev)
         tile = torch.searchsorted(b.starts.long(), slot, right=True)
         prev = torch.searchsorted(b.starts.long(), slot - 1, right=True)
-        if bool(((pg[1:] <= pg[:-1]) & (tile == prev)).any()):
+        if bool(((d[1:] < d[:-1]) & (tile == prev)).any()):
             raise AssertionError("[2p24] a tile's list is out of depth order")
-        del b, pg, slot, tile, prev
+        del proj, validf, opac, b, d, slot, tile, prev
     if not BIG_PAIRS[0] <= min(totals) <= max(totals) <= BIG_PAIRS[1]:
         raise AssertionError(f"[2p24] pair totals {totals} outside "
                              f"{BIG_PAIRS}")

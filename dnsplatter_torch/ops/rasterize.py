@@ -1,16 +1,17 @@
 """Tiled rasterizer with its backward (counterpart of
 dnsplatter_tpu/ops/rasterize.py).
 
-The layout is the JAX package's pallas path. Under the exact schemes
-(`packed`, `packed32`, `tilekey`, `auto`) Gaussians are depth-sorted once,
-one table gather serves binning and the pair payload, and a single key
-sort emits the dense CSR pair list: `tile * (N + 1) + gauss` under the
-packed schemes, whose sorted keys decode to per-pair Gaussian indices, or a
-stable sort on `tile * 2 + cullbit` with the indices riding as payload
-under `tilekey`, which has no ceiling on N. Under `depthq` (the Trainer's
-scheme) there is no depth pre-sort: the key is `tile * 2^qb + quantized
-depth` and the Gaussian id rides the sort as payload. `exact_cull` drops
-the (Gaussian, tile) pairs whose ellipse cannot reach 1/255 anywhere on the
+The pair list is one dense CSR layout under every sort scheme: tile t's
+pairs occupy [starts[t], starts[t] + counts[t]) front to back, and every
+slot carries the original Gaussian id (`pair_orig`), so the payload table
+is built once, in parameter order. Under the exact schemes (`packed`,
+`packed32`, `tilekey`, `auto`) binning depth-sorts the Gaussians first and
+one key sort emits the list: `tile * (N + 1) + depth rank` under the
+packed schemes, or a stable sort on `tile * 2 + cullbit` under `tilekey`,
+which has no ceiling on N. Under `depthq` (the Trainer's scheme) there is
+no depth pre-sort: the key is `tile * 2^qb + quantized depth`. Under every
+scheme the original id rides the sort as payload. `exact_cull` drops the
+(Gaussian, tile) pairs whose ellipse cannot reach 1/255 anywhere on the
 tile to the tail of the tile's range and shrinks the tile's count.
 
 Per-pair binning fields come from the `expand_segments` kernel, or at
@@ -27,8 +28,7 @@ four routes, as the JAX package's do:
 * `reduce_segments_packed_multi` (`reduce_pieces > 1`): the slab is cut at
   tile boundaries into pair-balanced pieces, each sorted on its own, and
   every id sums one run per piece. Piece lengths follow the data here, so
-  the JAX package's static `piece_capacity` and its fallback to the
-  monolithic sort have no counterpart;
+  the JAX package's fallback to the monolithic sort has no counterpart;
 * `reduce_segments` (`grad_reduce="segsum"`, the exact float32 reduction):
   the unpacked float32 slab is sorted by id and its runs summed. The JAX
   package sums the same slab with `jax.ops.segment_sum`; a scatter-add on
@@ -117,14 +117,6 @@ class RasterizeConfig:
         return self.reduce_pieces or 1
 
     @property
-    def piece_capacity(self) -> int:
-        """The JAX package's static per-piece slab length, kept so that
-        configurations compare equal field for field. Nothing reads it:
-        the port's pieces are as long as the data makes them."""
-        cap = self.pair_capacity // self.n_reduce_pieces + 16384
-        return -(-cap // self.chunk) * self.chunk
-
-    @property
     def boundary_reduce(self) -> bool:
         """Whether the backward sums contiguous per-id ranges, and binning
         therefore has to provide `orig_starts`. False on the default path
@@ -140,17 +132,14 @@ class RasterizeConfig:
 
 @dataclasses.dataclass(frozen=True)
 class _Binned:
-    """Depth-sorted Gaussians + dense CSR tile pair list. Tile t's pairs
-    occupy [starts[t], starts[t] + counts[t]) in front-to-back order; dead
-    slots (pair_gauss == N) lie past starts[-1]. With `exact_cull`,
-    counts[t] <= starts[t+1] - starts[t] and the slots between hold the
-    culled pairs: pair_gauss == N under the exact schemes, the real id
-    under depthq, so a consumer bounds by `counts`, never by the sentinel.
-    `pair_orig` keeps the real id of a culled pair under every scheme."""
+    """Dense CSR tile pair list. Tile t's pairs occupy [starts[t],
+    starts[t] + counts[t]) in front-to-back order; dead slots
+    (pair_orig == N) lie past starts[-1]. With `exact_cull`, counts[t] <=
+    starts[t+1] - starts[t] and the slots between hold the culled pairs,
+    with their real ids, so a consumer bounds by `counts`, never by the
+    sentinel."""
 
-    order: torch.Tensor  # (N,) depth sort permutation (identity: depthq)
-    pair_gauss: torch.Tensor  # (C + chunk,) index into the payload table
-    pair_orig: torch.Tensor  # (C + chunk,) original gaussian id
+    pair_orig: torch.Tensor  # (C + chunk,) original gaussian id, int32
     starts: torch.Tensor  # (T_padded + 1,) int32
     counts: torch.Tensor  # (T_padded,) int32
     gauss_starts: torch.Tensor  # (N + 1,) per-Gaussian pair ranges
@@ -293,17 +282,14 @@ def bin_gaussians(
     validf: torch.Tensor,
     conics: Optional[torch.Tensor] = None,
     opacities: Optional[torch.Tensor] = None,
-    order: Optional[torch.Tensor] = None,
-    fields_sorted: Optional[torch.Tensor] = None,
 ) -> _Binned:
-    """Global depth sort + dense CSR tile pair list in one sort (see the
-    JAX docstring, rasterize.py:286-313).
+    """Dense CSR tile pair list in one sort (see the JAX docstring,
+    rasterize.py:286-313), preceded under the exact schemes by a global
+    depth sort.
 
     Gaussians whose pair range does not fit `pair_capacity` drop whole:
     deepest first under the exact schemes, in array order under `depthq`,
-    which has no depth pre-sort. `order` + `fields_sorted` (the
-    depth-sorted payload table with radii_x, radii_y, validf in columns
-    13..15) skip the internal gathers. `conics` and `opacities` feed
+    which has no depth pre-sort. `conics` and `opacities` feed
     `exact_cull`; without them, or from F32_EXACT_LIMIT Gaussians or pair
     slots on, culling is a no-op and the layout stays right. Counts the
     call, its pairs listed and its capacity (`bin.*`).
@@ -328,23 +314,20 @@ def bin_gaussians(
                 raise ValueError(f"depthq takes fewer than {F32_EXACT_LIMIT} "
                                  f"Gaussians, got {n}; use sort_scheme='auto'")
             scheme = "depthq"
-            order = torch.arange(n, dtype=torch.int64, device=dev)
-            m2d_s = means2d
-            rad_s = rad_u
-            valid_s = valid
+            order = None
         else:
             scheme, key_bias = _resolve_scheme(cfg, n)
-            if order is None:
-                order = torch.argsort(torch.where(valid, depths, torch.inf),
-                                      stable=True)
-            if fields_sorted is not None:
-                m2d_s = fields_sorted[:, 0:2]
-                rad_s = fields_sorted[:, 13:15]
-                valid_s = fields_sorted[:, 15] > 0.5
-            else:
-                m2d_s = means2d[order]
-                rad_s = rad_u[order]
-                valid_s = valid[order]
+            order = torch.argsort(torch.where(valid, depths, torch.inf),
+                                  stable=True)
+
+        def walked(t: torch.Tensor) -> torch.Tensor:
+            """`t` in the order binning walks the Gaussians: by depth under
+            the exact schemes, as given under depthq."""
+            return t if order is None else t[order]
+
+        m2d_s = walked(means2d)
+        rad_s = walked(rad_u)
+        valid_s = walked(valid)
 
         x0, x1, y0, y1 = _tile_bbox(cfg, m2d_s, rad_s)
         w = (x1 - x0).clamp_min(0)
@@ -377,9 +360,9 @@ def bin_gaussians(
                             torch.cumsum(tile_counts, 0)])
 
         # Per-pair fields [gauss, offset, packed bbox, row 4] as
-        # piecewise-constant runs over the pair axis. Row 4 is the original id
-        # under the exact schemes; under depthq row 0 is already the original
-        # id and row 4 carries the quantized depth.
+        # piecewise-constant runs over the pair axis. Under the exact schemes
+        # row 0 is the depth rank and row 4 the original id; under depthq row
+        # 0 is already the original id and row 4 carries the quantized depth.
         pos = torch.arange(c, dtype=torch.int64, device=dev)
         live = pos < total
         pack_xyw = cfg.tiles_x < 128 and cfg.tiles_y < 128
@@ -415,15 +398,8 @@ def bin_gaussians(
         if cull:
             # One combined float32 expansion: the integer rows (below 2^24
             # here, so exact in float32) and six geometry rows for the test.
-            if depthq:
-                con_s = conics
-                op_s = torch.where(valid, opacities, 0.0)
-            elif fields_sorted is not None:
-                con_s = fields_sorted[:, 2:5]
-                op_s = fields_sorted[:, 5]  # already masked by validity
-            else:
-                con_s = conics[order]
-                op_s = torch.where(valid_s, opacities[order], 0.0)
+            con_s = walked(conics)
+            op_s = torch.where(valid_s, walked(opacities), 0.0)
             thr = torch.log(op_s.clamp_min(1e-12) * 255.0)
             allvals = torch.cat([
                 vals.float(),
@@ -448,7 +424,7 @@ def bin_gaussians(
             table = torch.zeros((nv, c), dtype=torch.int32, device=dev)
             table.index_add_(1, offsets[inside], diffs[:, inside])
             acc = rc.cumsum_lanes_i32(table).long()
-        pair_gauss0 = acc[0]
+        gauss0 = acc[0]  # the depth rank, or under depthq the original id
         rank = pos - acc[1]
         if pack_xyw:
             wg = (acc[2] % 256).clamp_min(1)
@@ -460,7 +436,7 @@ def bin_gaussians(
             x0p = acc[3] // 4096
             y0p = acc[3] % 4096
             row4_pair = acc[4]
-        orig0 = pair_gauss0 if depthq else row4_pair
+        orig0 = gauss0 if depthq else row4_pair
         tile_id = x0p + rank % wg + (y0p + rank // wg) * cfg.tiles_x
         tile_id = tile_id.clamp(0, t_pad)
         ov = torch.where(live, orig0, n)
@@ -487,44 +463,35 @@ def bin_gaussians(
             if cull:
                 key = torch.where(culled, tile_id * bigq + qmax, key)
             keys, perm = torch.sort((key - 2**31).to(torch.int32), stable=True)
-            pair_gauss = ov[perm]
-            pair_orig = pair_gauss
             bounds = tiles * bigq + qmax - 2**31
         elif scheme == "tilekey":
             # A stable sort on tile * 2 + cullbit alone. Before the sort the
-            # pairs of one tile already ascend in Gaussian (= depth) order, so
-            # stability gives exactly the packed layout, and the index rides
-            # as payload instead of being decoded from the key: any N.
+            # pairs of one tile already ascend in depth rank, so stability
+            # gives exactly the packed layout, and the key carries no rank:
+            # any N.
             key = torch.where(live, tile_id * 2, 2 * t_pad + 2)
-            gv = torch.where(live, pair_gauss0, n)
             if cull:
                 key = torch.where(culled, tile_id * 2 + 1, key)
-                gv = torch.where(culled, n, gv)
             keys, perm = torch.sort(key.to(torch.int32), stable=True)
-            pair_gauss = gv[perm]
-            pair_orig = ov[perm]
             bounds = tiles * 2 + 1
         else:
-            # tile * (N + 1) + gauss: unique over live, unculled pairs; a
-            # culled pair takes its tile's own sentinel index N, which decodes
-            # to the payload table's zero row.
+            # tile * (N + 1) + depth rank: unique over live, unculled pairs;
+            # a culled pair takes its tile's own largest key, rank N.
             big = n + 1
             sentinel = t_pad * big + n
-            key = torch.where(live, tile_id * big + pair_gauss0, sentinel)
+            key = torch.where(live, tile_id * big + gauss0, sentinel)
             if cull:
                 key = torch.where(culled, tile_id * big + n, key)
             keys, perm = torch.sort((key - key_bias).to(torch.int32),
                                     stable=cull)
-            pair_orig = ov[perm]
-            pair_gauss = (keys.long() + key_bias) % big
             bounds = tiles * big + n - key_bias
         if cull:
             surv_end = torch.searchsorted(keys, bounds.to(torch.int32))
             tile_counts = surv_end - starts[:-1]
+        # The id rides every sort as payload; the tail is the kernels'
+        # sentinel chunk.
         tail = torch.full((k,), n, dtype=torch.int64, device=dev)
-        pair_gauss = torch.cat([pair_gauss, tail]).to(torch.int32)
-        pair_orig = (pair_gauss if depthq
-                     else torch.cat([pair_orig, tail]).to(torch.int32))
+        pair_orig = torch.cat([ov[perm], tail]).to(torch.int32)
 
         orig_starts = piece_bounds = piece_starts = None
         if cfg.boundary_reduce:
@@ -534,9 +501,9 @@ def bin_gaussians(
             # while nothing overflowed; the capacity drop follows the
             # depth-sorted prefix, so under overflow only this form is right,
             # and without overflow the two agree.
-            counts_orig = (counts_g if depthq
+            counts_orig = (counts_g if order is None
                            else torch.zeros_like(counts_g).scatter_(
-                               0, order.long(), counts_g))
+                               0, order, counts_g))
             orig_starts = torch.cat([
                 torch.zeros(1, dtype=torch.int64, device=dev),
                 torch.cumsum(counts_orig, 0)]).to(torch.int32)
@@ -544,8 +511,6 @@ def bin_gaussians(
                 piece_bounds, piece_starts = _piece_structure(
                     cfg, starts, counts_orig, _tile_bbox(cfg, means2d, rad_u))
         binned = _Binned(
-            order=order,
-            pair_gauss=pair_gauss,
             pair_orig=pair_orig,
             starts=starts.to(torch.int32),
             counts=tile_counts.to(torch.int32),
@@ -591,47 +556,26 @@ def _image_to_tiles(cfg: RasterizeConfig, img: torch.Tensor) -> torch.Tensor:
 def _raster_fwd(cfg: RasterizeConfig, means2d, conics, opacities, features,
                 depths, radii, validf):
     """Binning, payload and `forward_tiles` (JAX rasterize.py:986-1095).
-    Under the exact schemes one depth-ordered (N, 16) gather feeds binning
-    and the payload; under depthq the payload table is a plain concat in
-    original order. Returns (image, alpha) and the residuals of the
-    backward: (binned, payload, t_final, last)."""
-    n = means2d.shape[0]
+    The payload table is a plain concat in parameter order, whatever the
+    sort scheme: every pair slot names its Gaussian by original id. Returns
+    (image, alpha) and the residuals of the backward: (binned, payload,
+    t_final, last)."""
     f = features.shape[-1]
     if not 1 <= f <= rc.MAX_FEATS:
         raise ValueError(f"rasterize composites 1..{rc.MAX_FEATS} channels, "
                          f"got {f}")
     dev = means2d.device
     opac_masked = torch.where(validf > 0.5, opacities, 0.0)
-    if cfg.sort_scheme == "depthq":
-        fields_s = torch.cat([means2d, conics, opac_masked[:, None],
-                              features], dim=-1)
-        binned = bin_gaussians(cfg, means2d, depths, radii, validf,
-                               conics=conics, opacities=opacities)
-    else:
-        order = torch.argsort(torch.where(validf > 0.5, depths, torch.inf),
-                              stable=True)
-        if f <= 7:
-            fields = torch.cat(
-                [means2d, conics, opac_masked[:, None], features,
-                 torch.zeros((n, 13 - 6 - f), device=dev), radii,
-                 validf[:, None]], dim=-1)
-            fields_s = fields[order]
-            binned = bin_gaussians(cfg, means2d, depths, radii, validf,
-                                   conics=conics, opacities=opacities,
-                                   order=order, fields_sorted=fields_s)
-        else:  # 8 channels leave no room for the binning columns
-            fields_s = torch.cat([means2d, conics, opac_masked[:, None],
-                                  features], dim=-1)[order]
-            binned = bin_gaussians(cfg, means2d, depths, radii, validf,
-                                   conics=conics, opacities=opacities,
-                                   order=order)
+    fields = torch.cat([means2d, conics, opac_masked[:, None], features],
+                       dim=-1)
+    binned = bin_gaussians(cfg, means2d, depths, radii, validf,
+                           conics=conics, opacities=opacities)
 
     pw = 6 + f
     pw_pad = -(-pw // 8) * 8
     with profiling.span("raster.payload"):
-        table = torch.cat([fields_s[:, :pw],
-                           torch.zeros((1, pw), device=dev)])
-        rows = table[binned.pair_gauss.long()]  # (C + K, 6 + F)
+        table = torch.cat([fields, torch.zeros((1, pw), device=dev)])
+        rows = table[binned.pair_orig.long()]  # (C + K, 6 + F)
         payload = torch.zeros((pw_pad, rows.shape[0]), device=dev)
         payload[:pw] = rows.T
     with profiling.span("raster.tiles"):

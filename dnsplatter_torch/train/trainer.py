@@ -146,7 +146,7 @@ class TrainConfig:
     cache_batches_on_device: bool = True
 
 
-def _check_ported(model_cfg: ModelConfig, tc: TrainConfig) -> None:
+def _check_config(model_cfg: ModelConfig, tc: TrainConfig) -> None:
     if model_cfg.camera_optimizer_mode not in ("off", "SO3xR3"):
         raise ValueError("camera_optimizer_mode "
                          f"{model_cfg.camera_optimizer_mode!r}: 'off' or "
@@ -307,7 +307,7 @@ class Trainer:
         out_dir: Optional[Path] = None,
         device=None,
     ):
-        _check_ported(model_cfg, train_cfg)
+        _check_config(model_cfg, train_cfg)
         # Join the process group before any tensor is made: under NCCL it
         # picks this rank's card.
         self.dist = None

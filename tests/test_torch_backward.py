@@ -330,9 +330,8 @@ def test_reduce_bykey_pads_the_slab_rows(length):
     slab = torch.stack([rc.pack_bf16_2(vals[2 * i], vals[2 * i + 1])
                         for i in range(ru)])
     cfg = trz.RasterizeConfig(width=32, height=32, compact_frac=1.0)
-    binned = trz._Binned(order=None, pair_gauss=None, pair_orig=keys,
-                         starts=None, counts=None, gauss_starts=None,
-                         total_pairs=None)
+    binned = trz._Binned(pair_orig=keys, starts=None, counts=None,
+                         gauss_starts=None, total_pairs=None)
     seen = []
     orig = rc.reduce_segments_bykey
 

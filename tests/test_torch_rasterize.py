@@ -46,26 +46,68 @@ def make_scene(seed, n=300, width=64, height=48, f=4, behind=0):
 
 
 def _jax_payload(cfg, s):
-    """The JAX pallas path's binning + payload (rasterize.py:1015-1085)."""
+    """The JAX pallas path's binning + payload (rasterize.py:1015-1085):
+    the (N, 16) depth-ordered table for F <= 7, the separate gathers of its
+    large-F fallback for F = 8."""
     n, f = s["feats"].shape
     valid = s["valid"].astype(np.float32)
-    fields = np.concatenate(
-        [s["means2d"], s["conics"], (s["opac"] * valid)[:, None], s["feats"],
-         np.zeros((n, 13 - 6 - f), np.float32), s["radii_xy"],
-         valid[:, None]], -1)
-    order = jnp.argsort(jnp.where(valid > 0.5, s["depths"], jnp.inf))
-    fields_s = jnp.asarray(fields)[order]
-    binned = jrz.bin_gaussians(cfg, jnp.asarray(s["means2d"]),
-                               jnp.asarray(s["depths"]),
-                               jnp.asarray(s["radii_xy"]), jnp.asarray(valid),
-                               order=order, fields_sorted=fields_s)
+    args = (cfg, jnp.asarray(s["means2d"]), jnp.asarray(s["depths"]),
+            jnp.asarray(s["radii_xy"]), jnp.asarray(valid))
+    geo = dict(conics=jnp.asarray(s["conics"]),
+               opacities=jnp.asarray(s["opac"]))
+    cols = [s["means2d"], s["conics"], (s["opac"] * valid)[:, None],
+            s["feats"]]
+    if f <= 7:
+        fields = np.concatenate(
+            cols + [np.zeros((n, 13 - 6 - f), np.float32), s["radii_xy"],
+                    valid[:, None]], -1)
+        order = jnp.argsort(jnp.where(valid > 0.5, s["depths"], jnp.inf))
+        fields_s = np.asarray(jnp.asarray(fields)[order])
+        binned = jrz.bin_gaussians(*args, **geo, order=order,
+                                   fields_sorted=jnp.asarray(fields_s))
+    else:
+        binned = jrz.bin_gaussians(*args, **geo)
+        fields_s = np.concatenate(cols, -1)[np.asarray(binned.order)]
     pw = 6 + f
-    table = np.concatenate([np.asarray(fields_s)[:, :pw],
-                            np.zeros((1, pw), np.float32)])
+    table = np.concatenate([fields_s[:, :pw], np.zeros((1, pw), np.float32)])
     rows = table[np.asarray(binned.pair_gauss)]
     payload = np.zeros((-(-pw // 8) * 8, rows.shape[0]), np.float32)
     payload[:pw] = rows.T
     return payload, np.array(binned.starts), np.array(binned.counts)
+
+
+@pytest.mark.parametrize("f", [4, 8])
+@pytest.mark.parametrize("cull", [False, True])
+@pytest.mark.parametrize("scheme", ["packed", "packed32", "tilekey"])
+def test_payload_bit_equal(scheme, cull, f):
+    """The port's payload, gathered in parameter order by original id,
+    against the JAX package's, gathered from its depth-sorted table by
+    depth rank: the same CSR and the same float32 bits on every counted
+    slot of every tile; dead slots hold the zero row."""
+    s = make_scene(20 + f, n=300, width=96, height=64, f=f)
+    s["opac"] = np.random.default_rng(f).uniform(0.02, 0.9, 300).astype(
+        np.float32)  # faint Gaussians, so that culling drops pairs
+    cfg = jrz.RasterizeConfig(width=96, height=64, tile_size=16, chunk=16,
+                              tile_block=4, pair_capacity=1 << 13,
+                              backend="pallas", sort_scheme=scheme,
+                              exact_cull=cull)
+    want, starts, counts = _jax_payload(cfg, s)
+    _, (binned, got, _, _) = trz._raster_fwd(
+        trz.RasterizeConfig(**cfg._asdict()),
+        *(torch.as_tensor(s[k]) for k in ("means2d", "conics", "opac",
+                                          "feats", "depths", "radii_xy")),
+        torch.as_tensor(s["valid"].astype(np.float32)))
+    got = got.numpy()
+    np.testing.assert_array_equal(binned.starts.numpy(), starts)
+    np.testing.assert_array_equal(binned.counts.numpy(), counts)
+    assert got.shape == want.shape
+    assert (counts < np.diff(starts)[:len(counts)]).any() == cull
+    counted = np.concatenate([np.arange(s0, s0 + c)
+                              for s0, c in zip(starts[:-1], counts)])
+    assert len(counted) > 500
+    np.testing.assert_array_equal(got[:, counted].view(np.int32),
+                                  want[:, counted].view(np.int32))
+    assert (got[:, starts[-1]:] == 0).all()
 
 
 @pytest.mark.parametrize("seed,chunk", [(0, 16), (1, 32)])
