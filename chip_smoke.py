@@ -83,7 +83,13 @@ Phases (any failure raises and the script exits non-zero):
    plain version, the other outputs within 1e-6 and the five gradients
    through autograd within 1e-5 of each array's largest magnitude (see
    `check_project_screen`); in phase 4 each trained step launches its
-   backward once and its forward at least once. Times: device time per call, from a batch of calls queued back to back
+   backward once and its forward at least once. The SSIM pair (`ssim`,
+   `ssim_backward`) at the benchmark configurations' frames, 1024x576 and
+   1600x1200: the per-pixel map bit-equal to `losses.ssim_map_plain`, the
+   mean within 1e-6 of `ssim_plain`'s, d img1 through autograd within 1e-5
+   of its largest magnitude, two runs bit for bit (see `check_ssim`); in
+   phase 4 each trained step launches its backward once and its forward at
+   least once. Times: device time per call, from a batch of calls queued back to back
    behind a spin kernel between one pair of CUDA events (median of three
    batches), so the host's per-call cost is not in it. The bound is the
    larger of the bytes the function must move / 3.35 TB/s and its FP32
@@ -294,6 +300,31 @@ PS_GRAD_TOL = 1e-5  # the five gradients: x the array's max
 # forward: 60 B read, 69 B written; backward: 13 gradient words, the four
 # parameter rows again, five gradient rows written
 PS_BYTES_PER_ROW = (60 + 69) + (52 + 44 + 56)
+# the SSIM pair at the benchmark configurations' frames (height, width)
+SSIM_FRAMES = (("room_1m", 576, 1024), ("big_3m", 1200, 1600))
+SSIM_MEAN_TOL = 1e-6  # the mean: relative
+SSIM_GRAD_TOL = 1e-5  # d img1: x its largest magnitude
+# a pixel and channel: x and y read forward; x, y read and dx written
+# backward
+SSIM_BYTES_PER_ELEM = 8 + 12
+# FP32 operations an output pixel and channel besides the blurs: the SSIM
+# from its five moments (19) and its share of the mean (1) forward; the
+# SSIM again and the partials A, B and C (19 + 18) backward
+SSIM_PIXEL_OPS = (20, 37)
+
+
+def ssim_ops(h: int, w: int, c: int, k: int) -> int:
+    """The FP32 operations of the SSIM pair at an (h, w, c) frame and a
+    k-tap window, each multiply and add counted once: the products x x,
+    y y, x y of every input (both ways), the two passes of the five moment
+    blurs (both ways), the per-pixel terms, the two passes of the transposed
+    blur of A, B, C, and dx = g / M (bA + 2 x bB + y bC) of every input."""
+    oh, ow = h - k + 1, w - k + 1
+    moments = 3 * h * w + 5 * 2 * k * (oh * w + oh * ow)
+    fwd = moments + SSIM_PIXEL_OPS[0] * oh * ow
+    bwd = (moments + SSIM_PIXEL_OPS[1] * oh * ow
+           + 3 * 2 * k * (oh * w + h * w) + 6 * h * w)
+    return c * (fwd + bwd)
 
 
 def log(msg: str) -> None:
@@ -1217,6 +1248,7 @@ REDUCERS = ("reduce_segments_bykey", "reduce_segments_packed",
             "reduce_segments_packed_multi", "reduce_segments")
 SH_KERNELS = ("sh_colors", "sh_colors_backward")
 PS_KERNELS = ("project_screen", "project_screen_backward")
+SSIM_KERNELS = ("ssim", "ssim_backward")
 
 
 def expected_step_launches(steps: int, capacity: int, reducer: str) -> dict:
@@ -1393,6 +1425,85 @@ def check_project_screen(rc, n: int, scene: str, width: int, height: int,
             "bytes": nbytes, "gpu": gpu}
 
 
+def ssim_inputs(h: int, w: int, dev, seed: int):
+    """A target image in [0, 1] and a prediction near it, (h, w, 3) on the
+    card, and the window and constants `losses.ssim` uses."""
+    import torch
+
+    from dnsplatter_torch.models.losses import _gaussian_window
+
+    g = torch.Generator(dev).manual_seed(seed)
+    gt = torch.rand(h, w, 3, device=dev, generator=g)
+    noise = torch.randn(h, w, 3, device=dev, generator=g)
+    pred = torch.clamp(gt + 0.05 * noise, 0.0, 1.0)
+    return pred, gt, _gaussian_window(11, 1.5, device=dev), 1e-4, 9e-4
+
+
+def check_ssim(rc, scene: str, h: int, w: int, gpu: str) -> dict:
+    """The SSIM pair (`ssim` forward, `ssim_backward`) at an (h, w, 3) frame
+    against `losses.ssim_plain` and its autograd: the per-pixel map bit for
+    bit, the mean within SSIM_MEAN_TOL, d img1 within SSIM_GRAD_TOL of its
+    largest magnitude, two runs bit for bit. Times each entry, the plain
+    version (forward and autograd's backward) and the bound: the larger of
+    SSIM_BYTES_PER_ELEM bytes a pixel and channel / 3.35 TB/s and
+    `ssim_ops` / 67 TFLOP/s."""
+    import torch
+
+    from dnsplatter_torch.models import losses as L
+
+    dev = torch.device("cuda")
+    pred, gt, win, c1, c2 = ssim_inputs(h, w, dev, seed=h)
+    mean, smap = rc.ssim_forward(pred, gt, win, c1, c2, per_pixel=True)
+    want_map = L.ssim_map_plain(pred, gt)
+    differ = int((smap.view(torch.int32) != want_map.view(torch.int32)).sum())
+    lk = pred.clone().requires_grad_(True)
+    lp = pred.clone().requires_grad_(True)
+    got = L.ssim(lk, gt)
+    gk = torch.autograd.grad(got, lk)[0]
+    want = L.ssim_plain(lp, gt)
+    gp = torch.autograd.grad(want, lp)[0]
+    again = L.ssim(lk, gt)
+    gk2 = torch.autograd.grad(again, lk)[0]
+    torch.cuda.synchronize()
+    got, want = got.detach(), want.detach()
+    errs = {"mean": abs(float(got) - float(want)) / abs(float(want)),
+            "d_img1": float((gk - gp).abs().max() / gp.abs().max())}
+    if differ:
+        raise AssertionError(f"ssim ({scene}): {differ} pixels of the map "
+                             "differ from the plain map")
+    for name, tol in (("mean", SSIM_MEAN_TOL), ("d_img1", SSIM_GRAD_TOL)):
+        if not errs[name] <= tol:
+            raise AssertionError(f"ssim ({scene}): {name} differs by "
+                                 f"{errs[name]}, over {tol}")
+    if not (torch.equal(got, again.detach()) and torch.equal(gk, gk2)
+            and torch.equal(got, mean)):
+        raise AssertionError(f"ssim ({scene}): two runs differ")
+    g = torch.ones((), device=dev)
+    with torch.no_grad():
+        fwd_ms = device_ms(lambda: rc.ssim_forward(pred, gt, win, c1, c2),
+                           50)
+        bwd_ms = device_ms(lambda: rc.ssim_backward(pred, gt, win, c1, c2,
+                                                    g), 50)
+
+    def plain_pair():
+        torch.autograd.grad(L.ssim_plain(lp, gt), lp)
+
+    plain_ms = device_ms(plain_pair, 5)
+    nbytes = h * w * 3 * SSIM_BYTES_PER_ELEM
+    ops = ssim_ops(h, w, 3, win.shape[0])
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"scene": scene, "kernel": "ssim", "frame": [h, w, 3],
+            "ssim": float(got), "map_bit_equal": True,
+            "runs_bit_equal": True, "max_rel_err": errs,
+            "max_abs_err": max(errs.values()), "ms": fwd_ms + bwd_ms,
+            "forward_ms": fwd_ms, "backward_ms": bwd_ms,
+            "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bytes": nbytes, "ops": ops, "gpu": gpu}
+
+
 def run_training(label, inputs, dev, gpu, steps, expect_refinement,
                  train_cfg=None, reducer="reduce_segments_bykey"):
     """Train the scene through `Trainer.train` and check the run; then hold
@@ -1427,7 +1538,7 @@ def run_training(label, inputs, dev, gpu, steps, expect_refinement,
 
     ms, losses, launches = timed_steps(one_step, TRAIN_WARMUP, steps,
                                        STEP_KERNELS + REDUCERS + SH_KERNELS
-                                       + PS_KERNELS)
+                                       + PS_KERNELS + SSIM_KERNELS)
     want = expected_step_launches(steps, trainer.params.capacity, reducer)
     if {k: launches[k] for k in want} != want:
         raise AssertionError(f"[{label}] launches {launches}, "
@@ -1442,6 +1553,9 @@ def run_training(label, inputs, dev, gpu, steps, expect_refinement,
         raise AssertionError(f"[{label}] screen-space launches {launches}, "
                              f"expected {steps} backward and at least as "
                              "many forward")
+    if (launches["ssim_backward"] != steps or launches["ssim"] < steps):
+        raise AssertionError(f"[{label}] SSIM launches {launches}, expected "
+                             f"{steps} backward and at least as many forward")
     for f in FIELDS:
         if not bool(torch.isfinite(getattr(trainer.params, f)).all()):
             raise AssertionError(f"[{label}] {f} is not finite")
@@ -3772,6 +3886,10 @@ def main() -> int:
             check_project_screen(rc, rows, scene, width, height, focal,
                                  gpu)], {})
         torch.cuda.empty_cache()
+    for scene, height, width in SSIM_FRAMES:
+        keep({"phase": "6", "ssim_frame": [height, width]}, [
+            check_ssim(rc, scene, height, width, gpu)], {})
+        torch.cuda.empty_cache()
     # -- the file-backed MuSHRoom path --
     with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=REPO) as tmp:
         keep(*run_mushroom(dev, gpu, Path(tmp)))
@@ -3820,6 +3938,8 @@ def main() -> int:
         ("project_screen", "big_3m", "project_screen.cu",
          "none: dnsplatter_tpu/ops/projection.py project_gaussians and "
          "normals.py, left to XLA"),
+        ("ssim", "big_3m", "ssim.cu",
+         "none: dnsplatter_tpu/models/losses.py ssim, left to XLA"),
     )
     kernels = []
     for kname, scene, source, replaces in kinds:

@@ -25,6 +25,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dnsplatter_torch.ops import rasterize_cuda
+
 
 def _const(x: torch.Tensor, v: float) -> torch.Tensor:
     return torch.as_tensor(v, dtype=x.dtype, device=x.device)
@@ -198,10 +200,11 @@ def _blur(t: torch.Tensor, win: torch.Tensor) -> torch.Tensor:
     return sum(win[i] * rows[..., i:i + w - k + 1] for i in range(k))
 
 
-def ssim(img1: torch.Tensor, img2: torch.Tensor, kernel_size: int = 11,
-         sigma: float = 1.5, data_range: float = 1.0) -> torch.Tensor:
-    """Mean gaussian-windowed SSIM of two (H, W, C) images in [0, 1]
-    (torchmetrics defaults, as the JAX package)."""
+def ssim_map_plain(img1: torch.Tensor, img2: torch.Tensor,
+                   kernel_size: int = 11, sigma: float = 1.5,
+                   data_range: float = 1.0) -> torch.Tensor:
+    """Per-pixel gaussian-windowed SSIM of two (H, W, C) images, planar
+    (C, H - kernel_size + 1, W - kernel_size + 1)."""
     c1 = (0.01 * data_range) ** 2
     c2 = (0.03 * data_range) ** 2
     win = _gaussian_window(kernel_size, sigma, device=img1.device)
@@ -219,7 +222,32 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, kernel_size: int = 11,
     sigma_xy = _blur(x * y, win) - mu_xy
     num = (2.0 * mu_xy + c1) * (2.0 * sigma_xy + c2)
     den = (mu_xx + mu_yy + c1) * (sigma_x + sigma_y + c2)
-    return torch.mean(num / den)
+    return num / den
+
+
+def ssim_plain(img1: torch.Tensor, img2: torch.Tensor, kernel_size: int = 11,
+               sigma: float = 1.5, data_range: float = 1.0) -> torch.Tensor:
+    """Plain PyTorch version of `ssim` (any device): the mean of
+    `ssim_map_plain`."""
+    return torch.mean(ssim_map_plain(img1, img2, kernel_size, sigma,
+                                     data_range))
+
+
+def ssim(img1: torch.Tensor, img2: torch.Tensor, kernel_size: int = 11,
+         sigma: float = 1.5, data_range: float = 1.0) -> torch.Tensor:
+    """Mean gaussian-windowed SSIM of two (H, W, C) images in [0, 1]
+    (torchmetrics defaults, as the JAX package).
+
+    On the card the kernel pair of csrc/ssim.cu computes it, differentiable
+    in img1 (`rasterize_cuda.ssim`: the same per-pixel SSIM bit for bit, its
+    mean summed in float64; it raises for images it cannot take); CPU
+    tensors run `ssim_plain`, differentiable in both.
+    """
+    if not rasterize_cuda._route(img1, "ssim"):
+        return ssim_plain(img1, img2, kernel_size, sigma, data_range)
+    return rasterize_cuda.ssim(
+        img1, img2, _gaussian_window(kernel_size, sigma, device=img1.device),
+        (0.01 * data_range) ** 2, (0.03 * data_range) ** 2)
 
 
 def rgb_main_loss(pred, gt, ssim_lambda: float = 0.2):

@@ -24,7 +24,7 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = ("expand_segments", "forward_tiles", "backward_tiles",
            "reduce_segments_bykey", "reduce_segments_packed",
            "reduce_segments_packed_multi", "reduce_segments",
-           "cumsum_lanes_i32", "sh_colors", "project_screen")
+           "cumsum_lanes_i32", "sh_colors", "project_screen", "ssim")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

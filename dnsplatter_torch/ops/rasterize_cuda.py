@@ -14,7 +14,9 @@ hold each kernel against them on the same inputs. `sh_colors` and
 `eval_sh`, the projection and the normals to XLA): they keep the contracts
 of `ops/sh.eval_sh` on the concatenated coefficients and of
 `project_screen_plain`, which is the per-Gaussian part of
-`ops/render.screen_space` after the colours.
+`ops/render.screen_space` after the colours. `ssim`, the loss's SSIM term
+(left to XLA too), is reached through `models/losses.ssim`, which keeps its
+plain version `ssim_plain` for CPU tensors.
 """
 
 from __future__ import annotations
@@ -97,6 +99,11 @@ _ENTRIES = {
                                 "dns_project_screen_backward",
                                 [_VP] * 10 + [_I, _I, _I, ctypes.c_longlong]
                                 + [_VP] * 15),
+    "ssim": ("ssim", "dns_ssim",
+             [_VP, _VP, _VP, _I, _I, _I, _I, _VP, _VP, _I, _VP, _VP, _VP]),
+    "ssim_backward": ("ssim", "dns_ssim_backward",
+                      [_VP, _VP, _VP, _I, _I, _I, _I, _VP, _VP, _VP, _VP,
+                       _VP]),
 }
 _FNS: Dict[str, ctypes._CFuncPtr] = {}
 
@@ -1132,3 +1139,106 @@ def project_screen(means, quats, scales, opacities, colors, alive, viewmat,
         quats.contiguous(), scales.contiguous(), opacities.contiguous(),
         colors.contiguous(), alive.contiguous(), viewmat.contiguous(),
         c2w.contiguous(), *intrinsics)
+
+
+# ---------------------------------------------------------------------------
+# ssim (no Pallas counterpart: the JAX package leaves the loss's SSIM to XLA)
+# ---------------------------------------------------------------------------
+
+SSIM_MAX_KERNEL = 11
+SSIM_MAX_CHANNELS = 4
+SSIM_TILE = (16, 32)  # output rows and columns a CTA: csrc/ssim.cu's tile
+
+
+def _ssim_check(img1: torch.Tensor, img2: torch.Tensor,
+                win: torch.Tensor) -> None:
+    if img2.dtype != torch.float32 or img1.dtype != torch.float32 or \
+            img2.device != img1.device:
+        raise ValueError("ssim: img1 and img2 must be float32 on one device")
+    if img1.ndim != 3 or img2.shape != img1.shape:
+        raise ValueError("ssim: img1 and img2 must be (H, W, C) of one "
+                         "shape")
+    if win.ndim != 1 or win.dtype != torch.float32 or \
+            win.device != img1.device:
+        raise ValueError("ssim: win must be a float32 vector on the images' "
+                         "device")
+    h, w, c = img1.shape
+    k = win.shape[0]
+    if not 1 <= k <= min(SSIM_MAX_KERNEL, h, w):
+        raise ValueError(f"ssim: a window of {k} taps: the kernel takes 1 "
+                         f"to {SSIM_MAX_KERNEL}, at most H and W")
+    if not 1 <= c <= SSIM_MAX_CHANNELS or img1.numel() >= 2**31:
+        raise ValueError(f"ssim: the kernel takes 1 to {SSIM_MAX_CHANNELS} "
+                         "channels and fewer than 2^31 elements")
+    if torch.is_grad_enabled() and img2.requires_grad:
+        raise ValueError("ssim: the kernel gives no gradient in img2")
+
+
+def ssim_forward(img1: torch.Tensor, img2: torch.Tensor, win: torch.Tensor,
+                 c1: float, c2: float, per_pixel: bool = False):
+    """The mean SSIM of contiguous card images (0-d) and, with `per_pixel`,
+    the map itself, planar (C, H - K + 1, W - K + 1); else None."""
+    h, w, c = img1.shape
+    k = win.shape[0]
+    n = -(-(h - k + 1) // SSIM_TILE[0]) * -(-(w - k + 1) // SSIM_TILE[1])
+    partials = img1.new_empty(n, dtype=torch.float64)
+    out = img1.new_empty(())
+    smap = img1.new_empty(c, h - k + 1, w - k + 1) if per_pixel else None
+    _check_rc(_entry("ssim")(
+        img1.data_ptr(), img2.data_ptr(), win.data_ptr(), k, h, w, c,
+        (ctypes.c_float * 2)(c1, c2), partials.data_ptr(), n, out.data_ptr(),
+        None if smap is None else smap.data_ptr(), _stream()), "ssim")
+    _count("ssim")
+    return out, smap
+
+
+def ssim_backward(img1: torch.Tensor, img2: torch.Tensor, win: torch.Tensor,
+                  c1: float, c2: float, grad: torch.Tensor) -> torch.Tensor:
+    """The gradient in img1 of the mean SSIM for its own gradient grad (0-d,
+    on the card, read there). Contiguous card inputs only."""
+    h, w, c = img1.shape
+    k = win.shape[0]
+    abc = img1.new_empty(3 * c * (h - k + 1) * (w - k + 1))
+    dx = torch.empty_like(img1)
+    _check_rc(_entry("ssim_backward")(
+        img1.data_ptr(), img2.data_ptr(), win.data_ptr(), k, h, w, c,
+        (ctypes.c_float * 2)(c1, c2), grad.contiguous().data_ptr(),
+        abc.data_ptr(), dx.data_ptr(),
+        _stream()), "ssim_backward")
+    _count("ssim_backward")
+    return dx
+
+
+class _SsimFn(torch.autograd.Function):
+    """The kernel pair of csrc/ssim.cu: the mean forward, the gradient in
+    img1 backward."""
+
+    @staticmethod
+    def forward(ctx, img1, img2, win, c1, c2):
+        ctx.constants = (c1, c2)
+        ctx.save_for_backward(img1, img2, win)
+        return ssim_forward(img1, img2, win, c1, c2)[0]
+
+    @staticmethod
+    def backward(ctx, grad):
+        img1, img2, win = ctx.saved_tensors
+        return (ssim_backward(img1, img2, win, *ctx.constants, grad),
+                None, None, None, None)
+
+
+def ssim(img1: torch.Tensor, img2: torch.Tensor, win: torch.Tensor,
+         c1: float, c2: float) -> torch.Tensor:
+    """Mean SSIM of two (H, W, C) card images with the window `win` (K
+    taps, float32 on the card) and the constants c1, c2, differentiable in
+    img1: `models/losses.ssim_plain` with that window, for float32 images of
+    one shape with C <= SSIM_MAX_CHANNELS, a window of at most
+    SSIM_MAX_KERNEL taps that fits in them and img2 taking no gradient
+    (raises for others). Two launches each way: the moments tiled in shared
+    memory, then the map's sum in float64, forward (`ssim`); the per-pixel
+    partials, then their transposed blur, backward (`ssim_backward`)."""
+    if not _route(img1, "ssim"):
+        raise ValueError("ssim: the kernel takes card tensors; "
+                         "models/losses.ssim_plain takes the others")
+    _ssim_check(img1, img2, win)
+    return _SsimFn.apply(img1.contiguous(), img2.contiguous(),
+                         win.contiguous(), float(c1), float(c2))

@@ -37,6 +37,12 @@ opacities and colors within 1e-5 of each array's largest magnitude (the
 backward's own order of operations: about 100 float32 ulps of the largest
 term); the camera's (viewmat and c2w, summed over every row) within 1e-4 of
 the largest.
+ssim (the kernel pair against `losses.ssim_plain`, run by torch on the card,
+through autograd): the per-pixel map bit-equal to `ssim_map_plain` (the
+kernel rounds each product and sum where torch's ops round them, in their
+order), the mean within 1e-6 relative (the kernel sums in float64, torch in
+float32), d img1 within 1e-5 of its largest magnitude (the backward's own
+order of operations), two runs bit for bit.
 """
 
 from unittest import mock
@@ -1194,13 +1200,13 @@ def test_sh_colors_kernel_refuses_bad_inputs(dev):
     assert dict(rc.LAUNCHES) == before
 
 
-@pytest.mark.cuda
-def test_sh_colors_launches_once_a_step_and_once_a_frame(dev):
-    """One `train_step` launches the forward and the backward once each;
-    one `get_outputs` under no_grad the forward once and the backward
-    never."""
+def _counted_train_step(dev):
+    """One `train_step` of a small synthetic scene on the card, with
+    `rc.LAUNCHES` set to 0 just before it. Returns what a frame of the
+    trained state needs: (params, alive, camera, model and raster
+    configurations)."""
     from dnsplatter_torch.data.synthetic import make_synthetic_scene
-    from dnsplatter_torch.models.dn_model import ModelConfig, get_outputs
+    from dnsplatter_torch.models.dn_model import ModelConfig
     from dnsplatter_torch.models.gaussians import init_from_points
     from dnsplatter_torch.train.optim import OptimConfig, init_adam
     from dnsplatter_torch.train.strategy import init_stats
@@ -1219,15 +1225,26 @@ def test_sh_colors_launches_once_a_step_and_once_a_frame(dev):
                            sort_scheme="depthq")
     cam, batch = scene.get(1)
     batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-    names = ("sh_colors", "sh_colors_backward")
     rc.LAUNCHES.clear()
     out = train_step(mc, OptimConfig(), rcfg, 3, params, alive,
                      init_adam(params), init_stats(512, dev), cam, batch, 0)
     torch.cuda.synchronize()
+    return out[0], alive, cam, mc, rcfg
+
+
+@pytest.mark.cuda
+def test_sh_colors_launches_once_a_step_and_once_a_frame(dev):
+    """One `train_step` launches the forward and the backward once each;
+    one `get_outputs` under no_grad the forward once and the backward
+    never."""
+    from dnsplatter_torch.models.dn_model import get_outputs
+
+    params, alive, cam, mc, rcfg = _counted_train_step(dev)
+    names = ("sh_colors", "sh_colors_backward")
     assert [rc.LAUNCHES[k] for k in names] == [1, 1]
     rc.LAUNCHES.clear()
     with torch.no_grad():
-        get_outputs(out[0], alive, cam, mc, rcfg, sh_degree=3,
+        get_outputs(params, alive, cam, mc, rcfg, sh_degree=3,
                     training=False)
     torch.cuda.synchronize()
     assert [rc.LAUNCHES[k] for k in names] == [1, 0]
@@ -1461,3 +1478,114 @@ def test_project_screen_launches_once_a_step_and_once_a_frame(dev):
     torch.cuda.synchronize()
     assert [rc.LAUNCHES[k] for k in ("project_screen",
                                      "project_screen_backward")] == [1, 0]
+
+
+# ---------------------------------------------------------------------------
+# ssim
+# ---------------------------------------------------------------------------
+
+
+def _ssim_pair(dev, h, w, c, seed):
+    """A target in [0, 1] and a prediction near it, with patches of 0.5 and
+    0.25 where whole windows see one value."""
+    g = torch.Generator(dev).manual_seed(seed)
+    gt = torch.rand(h, w, c, device=dev, generator=g)
+    pred = torch.clamp(
+        gt + 0.05 * torch.randn(h, w, c, device=dev, generator=g), 0.0, 1.0)
+    pred[2:h - 3, 3:w // 2 + 8] = 0.5
+    gt[4:h - 1, 1:w // 2] = 0.25
+    return pred, gt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,c,k", [(1200, 1600, 3, 11), (576, 1024, 3, 11),
+                                     (37, 45, 3, 11), (23, 17, 1, 7),
+                                     (40, 52, 4, 3), (11, 11, 3, 11)])
+def test_ssim_kernel_matches_plain(dev, h, w, c, k):
+    from dnsplatter_torch.models import losses as L
+
+    pred, gt = _ssim_pair(dev, h, w, c, seed=h + w + c + k)
+    win = L._gaussian_window(k, 1.5, device=dev)
+    before = (rc.LAUNCHES["ssim"], rc.LAUNCHES["ssim_backward"])
+    mean, smap = rc.ssim_forward(pred, gt, win, 1e-4, 9e-4, per_pixel=True)
+    assert torch.equal(smap.view(torch.int32),
+                       L.ssim_map_plain(pred, gt, k).view(torch.int32))
+    lk = pred.clone().requires_grad_(True)
+    lp = pred.clone().requires_grad_(True)
+    got = L.ssim(lk, gt, kernel_size=k)
+    gk = torch.autograd.grad(got, lk)[0]
+    want = L.ssim_plain(lp, gt, kernel_size=k)
+    gp = torch.autograd.grad(want, lp)[0]
+    assert (rc.LAUNCHES["ssim"], rc.LAUNCHES["ssim_backward"]) == (
+        before[0] + 2, before[1] + 1)
+    assert torch.equal(got.detach(), mean)
+    want = float(want.detach())
+    assert abs(float(mean) - want) <= 1e-6 * abs(want)
+    assert float((gk - gp).abs().max()) <= 1e-5 * float(gp.abs().max())
+    again = L.ssim(lk, gt, kernel_size=k)
+    assert torch.equal(again.detach(), mean)
+    assert torch.equal(torch.autograd.grad(again, lk)[0], gk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,c", [(40, 52, 3), (37, 45, 3)])
+def test_ssim_kernel_reads_unaligned_images(dev, h, w, c):
+    """Images that start 4 bytes past a 16-byte boundary (the staging's
+    four-load path for every quad) give the same bits as aligned copies:
+    the map, the mean and d img1."""
+    from dnsplatter_torch.models import losses as L
+
+    pred, gt = _ssim_pair(dev, h, w, c, seed=h * w)
+    win = L._gaussian_window(11, 1.5, device=dev)
+    shifted = []
+    for t in (pred, gt):
+        buf = torch.empty(t.numel() + 1, device=dev)
+        view = buf[1:].view(h, w, c)
+        view.copy_(t)
+        assert view.data_ptr() % 16 == 4
+        shifted.append(view)
+    want = rc.ssim_forward(pred, gt, win, 1e-4, 9e-4, per_pixel=True)
+    got = rc.ssim_forward(*shifted, win, 1e-4, 9e-4, per_pixel=True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    g = torch.ones((), device=dev)
+    assert torch.equal(rc.ssim_backward(*shifted, win, 1e-4, 9e-4, g),
+                       rc.ssim_backward(pred, gt, win, 1e-4, 9e-4, g))
+
+
+@pytest.mark.cuda
+def test_ssim_routes_by_input(dev):
+    """On the card `losses.ssim` runs the kernel or raises: a window over 11
+    taps, float64, an image smaller than the window, five channels, shapes
+    that differ and img2 taking a gradient raise a ValueError there and in
+    the kernel's own wrapper, launch nothing and never reach
+    `ssim_plain`."""
+    from dnsplatter_torch.models import losses as L
+
+    pred, gt = _ssim_pair(dev, 40, 48, 3, seed=1)
+    five = torch.rand(40, 48, 5, device=dev)
+    cases = {
+        "kernel 13": (pred, gt, 13),
+        "float64": (pred.double(), gt.double(), 11),
+        "small": (pred[:9], gt[:9], 11),
+        "channels": (five, five.flip(0), 11),
+        "shapes": (pred, gt[:, :47], 11),
+        "img2 grad": (pred, gt.clone().requires_grad_(True), 11),
+    }
+    before = dict(rc.LAUNCHES)
+    for what, (a, b, k) in cases.items():
+        with pytest.raises(ValueError, match="ssim"):
+            L.ssim(a, b, k)
+        with pytest.raises(ValueError, match="ssim"):
+            rc.ssim(a, b, L._gaussian_window(k, 1.5, device=dev), 1e-4,
+                    9e-4)
+    assert dict(rc.LAUNCHES) == before
+    L.ssim(pred, gt, 11)
+    assert rc.LAUNCHES["ssim"] == before.get("ssim", 0) + 1
+
+
+@pytest.mark.cuda
+def test_ssim_launches_once_a_step(dev):
+    """One `train_step` launches the SSIM forward and backward once
+    each."""
+    _counted_train_step(dev)
+    assert [rc.LAUNCHES[k] for k in ("ssim", "ssim_backward")] == [1, 1]
